@@ -1,0 +1,149 @@
+"""Dynamic draft-tree construction (EAGLE-2/3), deterministic greedy beam.
+
+Port of eagle_tpu/engine/drafter.py:draft_round. The accepted suffix arrives
+as a padded window with a valid count `n_new` (a device tensor); the beam
+loop runs `depth` static steps; the final rerank is top-k + sort +
+searchsorted, all on the device, feeding ops.tree.build_tree.
+
+Tie rule: every top-k here orders by value descending, then index ascending,
+as `jax.lax.top_k` and the JAX package's `topk_rows` do. `torch.topk` does
+not promise that, so `topk_rows` is a stable descending sort.
+
+Draft-sequence convention: draft position i holds the token at target
+position i+1 paired with the target feature at position i.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import DraftConfig, EngineConfig
+from ..models import draft as draft_mod
+from ..ops.kv_cache import KVCache
+from ..ops.masks import place_slab, prefill_mask
+from ..ops.tree import Tree, build_tree
+
+
+def topk_rows(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis: values descending, ties broken by
+    ascending index (a stable sort keeps equal values in index order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def score_topk(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
+               hidden: torch.Tensor, target_lm_head, k: int):
+    """Log-softmax top-k (scores [M, k] fp32, draft-vocab ids [M, k]) of the
+    draft scoring head over [M, H] hidden rows (the unfused branch)."""
+    if ecfg.fuse_scoring:
+        raise NotImplementedError("fuse_scoring (the fused score+top-k kernel) "
+                                  "is not ported yet")
+    logits = draft_mod.draft_logits(dparams, dcfg, hidden, target_lm_head)
+    return topk_rows(torch.log_softmax(logits, dim=-1), k)
+
+
+class DraftRound(NamedTuple):
+    tree: Tree
+    dcache: KVCache  # committed draft cache (length excludes beam scratch)
+
+
+def _beam_mask(anc: torch.Tensor, S: int, dlen: torch.Tensor) -> torch.Tensor:
+    """[k, depth*k] beam-ancestor slab → [1, k, S] mask: committed pairs at
+    columns < dlen, beam rows at [dlen, dlen + depth*k)."""
+    k = anc.shape[0]
+    committed = torch.arange(S, device=anc.device)[None, :] < dlen
+    placed = place_slab(anc[None], S, dlen.reshape(1))[0]
+    return (committed.expand(k, S) | placed)[None]
+
+
+def draft_round(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
+                ext_tokens: torch.Tensor, ext_feats: torch.Tensor,
+                n_new: torch.Tensor, dcache: KVCache,
+                target_lm_head: Optional[torch.Tensor] = None) -> DraftRound:
+    """Extend the draft cache with the accepted pairs, then grow a new tree.
+
+    ext_tokens: [T] padded pair tokens (row n_new-1 is the pending root);
+    ext_feats: [T, F] padded pair features; n_new: device scalar, number of
+    valid pairs; dcache: draft KV, written in place (beam rows past the
+    committed length are scratch and never committed).
+    """
+    k, depth, total = ecfg.top_k, ecfg.depth, ecfg.total_tokens
+    T = ext_tokens.shape[0]
+    S = dcache.max_len
+    dev = ext_tokens.device
+    dlen0 = dcache.length[0]
+    n_new = n_new.to(torch.long)
+    dlen = dlen0 + n_new
+
+    # ---- 1. extend on the accepted suffix
+    pos = (dlen0 + torch.arange(T, device=dev))[None]
+    mask = prefill_mask(T, S, dcache.length)
+    dres = draft_mod.forward(dparams, dcfg, ext_tokens[None], ext_feats[None],
+                             dcache, pos, mask)
+    last = torch.remainder(n_new - 1, T)      # JAX wraps a -1 index
+    root_hidden = dres.hidden[0].index_select(0, last.reshape(1))[0]
+    root_token = ext_tokens.index_select(0, last.reshape(1))[0]
+    kc, vc = dres.cache.k, dres.cache.v
+
+    # ---- 2. root candidates
+    root_p, root_i = score_topk(dparams, dcfg, ecfg, root_hidden[None],
+                                target_lm_head, k)
+    root_p, root_i = root_p[0], root_i[0]
+    root_tok = draft_mod.map_draft_to_target(dparams, dcfg, root_i)
+
+    # ---- 3. beam expansion
+    eye = torch.eye(k, dtype=torch.bool, device=dev)
+    anc = torch.zeros((k, depth * k), dtype=torch.bool, device=dev)
+    anc[:, :k] = eye
+    tokens = root_tok
+    hidden = root_hidden.expand(k, root_hidden.shape[-1])
+    scores = root_p
+    prev_flat = torch.arange(k, device=dev)
+    beam_ids_all, cu_all, cand_all = [], [], []
+    for i in range(depth):
+        write_at = dlen + i * k
+        beam_cache = KVCache(k=kc, v=vc, length=write_at.reshape(1))
+        bpos = (dlen + i).reshape(1, 1).expand(1, k)
+        bmask = _beam_mask(anc, S, dlen)
+        res = draft_mod.forward(dparams, dcfg, tokens[None], hidden[None],
+                                beam_cache, bpos, bmask)
+        hid = res.hidden[0]                                   # [k, H]
+        tk_p, tk_i = score_topk(dparams, dcfg, ecfg, hid, target_lm_head, k)
+        cand_tok = draft_mod.map_draft_to_target(dparams, dcfg, tk_i)
+        cu = tk_p + scores[:, None]                           # [k, k]
+        cs_p, cs_i = topk_rows(cu.reshape(-1), k)             # beam rerank
+        out_ids = cs_i // k
+        # node ids of this step's beam rows in flat-score space (+1 for root)
+        if i == 0:
+            beam_ids = torch.arange(k, device=dev) + 1
+        else:
+            beam_ids = k + (i - 1) * k * k + prev_flat + 1
+        new_anc = anc[out_ids]
+        blk = min(i + 1, depth - 1) * k    # the last step's anc is unused
+        new_anc[:, blk:blk + k] = eye
+        tokens = cand_tok.reshape(-1)[cs_i]
+        hidden = hid[out_ids]
+        scores = cs_p
+        anc = new_anc
+        prev_flat = cs_i
+        beam_ids_all.append(beam_ids)
+        cu_all.append(cu)
+        cand_all.append(cand_tok)
+
+    # ---- 4. global rerank to total_tokens nodes
+    scores_flat = torch.cat([root_p, torch.stack(cu_all).reshape(-1)])
+    tokens_flat = torch.cat([root_tok, torch.stack(cand_all).reshape(-1)])
+    parents_flat = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                              torch.stack(beam_ids_all).reshape(-1)])
+    _, sel = topk_rows(scores_flat, total)
+    sel, _ = torch.sort(sel)                  # ascending → parents precede
+    draft_parents = parents_flat[sel // k]
+    parent_rank = torch.searchsorted(sel, draft_parents - 1, right=False)
+    tree_parents = torch.where(draft_parents == 0, 0, parent_rank + 1)
+
+    tokens_full = torch.cat([root_token.reshape(1), tokens_flat[sel]])
+    parents_full = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), tree_parents])
+    tree = build_tree(tokens_full, parents_full, k, max_depth=depth + 2)
+    return DraftRound(tree=tree, dcache=KVCache(k=kc, v=vc, length=dlen.reshape(1)))

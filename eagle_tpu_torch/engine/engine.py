@@ -1,0 +1,426 @@
+"""EagleEngine — greedy speculative decoding, B = 1, on one device.
+
+Port of eagle_tpu/engine/engine.py for the slice's main path: `_prefill`,
+`_round` (tree verify → accept_greedy → KV compaction → next draft tree),
+`generate`, `generate_fused`, and the vanilla baseline. The JAX engine jits
+each round into one XLA program; here PyTorch runs eagerly and a round keeps
+every offset on the device, so it never waits on the host.
+`generate_fused` is a host loop whose only per-round sync reads one stop
+flag (`done` or budget reached).
+
+Options this slice does not port raise NotImplementedError: temperature > 0,
+kv_quant, draft_quant, quantized targets, kv_buckets, tree_paths (static
+trees), fuse_scoring, batched generation, sp_mesh, MoE and sliding-window
+targets.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import resolve_device
+from ..config import DraftConfig, EngineConfig, ModelConfig
+from ..models import draft as draft_mod
+from ..models import transformer
+from ..ops.attn_kernels import compact_rows
+from ..ops.kv_cache import (KVCache, compact_accepted, init_cache, window,
+                            with_length)
+from ..ops.masks import TreeMaskSpec, prefill_mask
+from ..ops.tree import Tree
+from . import accept as accept_mod
+from .drafter import draft_round
+
+
+class EngineState(NamedTuple):
+    tokens: torch.Tensor   # [1, S] committed tokens (+ scratch tail)
+    length: torch.Tensor   # scalar committed length
+    cache: KVCache         # target KV
+    dcache: KVCache        # draft KV (pairs)
+    tree: Tree             # next tree to verify
+    done: torch.Tensor     # scalar bool — sequence finished
+
+
+class RoundOutput(NamedTuple):
+    new_tokens: torch.Tensor  # [PATH] committed this round (first n_acc valid)
+    accept_len: torch.Tensor  # scalar (-1 when the sequence is done)
+    done: torch.Tensor        # scalar bool
+    live_match: torch.Tensor  # forced replay: live-argmax agreements
+
+
+def _target_feats(res: transformer.ForwardResult, version: int) -> torch.Tensor:
+    """Draft input features: v3 = fused 3-tap, v1 = post-final-norm hidden."""
+    return res.taps if version == 3 else res.hidden
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+class EagleEngine:
+    """Owns params + configs and runs greedy speculative decoding."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, dparams: dict,
+                 dcfg: DraftConfig, ecfg: EngineConfig,
+                 eos_token_id: Optional[int] = None, sp_mesh=None,
+                 device=None):
+        self.device = resolve_device(device)
+        if ecfg.temperature > 0:
+            raise NotImplementedError("temperature > 0 (sampled acceptance) "
+                                      "is not ported yet")
+        if ecfg.kv_quant != "none":
+            raise NotImplementedError(f"kv_quant={ecfg.kv_quant!r} is not ported yet")
+        if ecfg.draft_quant != "none":
+            raise NotImplementedError(f"draft_quant={ecfg.draft_quant!r} is not ported yet")
+        if ecfg.kv_buckets:
+            raise NotImplementedError("kv_buckets is not ported yet")
+        if ecfg.tree_paths is not None:
+            raise NotImplementedError("static trees (tree_paths) are not ported yet")
+        if ecfg.fuse_scoring:
+            raise NotImplementedError("fuse_scoring is not ported yet")
+        if ecfg.acceptance not in ("q1", "true_q", "true_q_dynamic"):
+            raise ValueError(f"unknown acceptance {ecfg.acceptance!r} "
+                             "(expected 'q1' | 'true_q' | 'true_q_dynamic')")
+        if sp_mesh is not None:
+            raise NotImplementedError("sequence-parallel prefill (sp_mesh) is "
+                                      "not ported yet")
+        transformer.check_dense(params)   # quantized targets are not ported
+        transformer.check_supported(cfg)
+        self.params, self.cfg = _to_device(params, self.device), cfg
+        self.eos_token_id = eos_token_id
+        dparams = _to_device(dparams, self.device)
+        if ecfg.fuse_draft:
+            dparams = draft_mod.fuse_projections(dparams)
+        self.dparams, self.dcfg, self.ecfg = dparams, dcfg, ecfg
+        self.path_len = ecfg.depth + 2
+        # rows that must stay free past the committed context for one round:
+        # the commit window, plus a 16-row margin under compact_impl="pallas".
+        # The margin was inherited from the TPU kernel's 8-row Mosaic staging;
+        # the CUDA kernel does not need it, but keeping the formula keeps both
+        # engines' capacity stops (and so their output lengths) the same.
+        self._tail = (max(self.path_len + 1, 16) if ecfg.compact_impl == "pallas"
+                      else self.path_len + 1)
+        if dcfg.version == 1:
+            self._lm_head_w = (self.params["embed"]["w"].t() if cfg.tie_embeddings
+                               else self.params["lm_head"])
+        else:
+            self._lm_head_w = None
+
+    # ------------------------------------------------------------------
+    # cache allocation
+    # ------------------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        """Prompt padding bucket (quantum capped by max_len), as in JAX."""
+        quantum = min(128, self.ecfg.max_len)
+        return max(quantum, -(-n // quantum) * quantum)
+
+    def _tgt_len(self) -> int:
+        """Target KV rows: max_len + tree scratch (+ the compaction margin),
+        rounded up to a multiple of 128 (the JAX formula, kept as it is)."""
+        e = self.ecfg
+        margin = 16 if e.compact_impl == "pallas" else 0
+        return -(-(e.max_len + e.tree_size + margin) // 128) * 128
+
+    def init_target_cache(self) -> KVCache:
+        c = self.cfg
+        return init_cache(c.num_layers, 1, c.num_kv_heads, self._tgt_len(),
+                          c.head_dim, dtype=c.dtype, device=self.device)
+
+    def init_draft_cache(self) -> KVCache:
+        e, d = self.ecfg, self.dcfg
+        # beam scratch rows past the committed pairs + extension-window padding
+        scratch = max((e.depth + 1) * e.top_k, e.tree_size)
+        dft_len = e.max_len + scratch + self.path_len
+        return init_cache(d.num_layers if d.version == 1 else 1, 1,
+                          d.num_kv_heads, dft_len, d.head_dim, dtype=d.dtype,
+                          device=self.device)
+
+    def init_caches(self) -> tuple[KVCache, KVCache]:
+        return self.init_target_cache(), self.init_draft_cache()
+
+    # ------------------------------------------------------------------
+    # speculative path
+    # ------------------------------------------------------------------
+
+    def _draft_round(self, ext_tokens, ext_feats, n_new, dcache):
+        return draft_round(self.dparams, self.dcfg, self.ecfg, ext_tokens,
+                           ext_feats, n_new, dcache, self._lm_head_w)
+
+    def _pick_token(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(logits)
+
+    def _prefill(self, tokens: torch.Tensor, prompt_len: int, cache: KVCache,
+                 dcache: KVCache, ref: Optional[torch.Tensor] = None) -> EngineState:
+        """Prompt prefill + first draft tree. tokens: [1, Tp] padded."""
+        dev = self.device
+        Tp = tokens.shape[1]
+        S = cache.max_len
+        pos = torch.arange(Tp, device=dev)[None]
+        res = transformer.forward(self.params, self.cfg, tokens, cache, pos,
+                                  prefill_mask(Tp, S, cache.length))
+        last_logits = transformer.lm_head(self.params, self.cfg,
+                                          res.hidden[0, prompt_len - 1])
+        root = self._pick_token(last_logits)
+        if ref is not None:  # forced replay: the first token is pinned too
+            root = ref[prompt_len]
+        plen = torch.tensor(prompt_len, dtype=torch.long, device=dev)
+        cache = with_length(res.cache, plen.reshape(1))
+        feats = _target_feats(res, self.dcfg.version)[0]
+        ext_tokens = torch.cat([tokens[0, 1:], torch.zeros(1, dtype=torch.long, device=dev)])
+        ext_tokens[prompt_len - 1] = root
+        dr = self._draft_round(ext_tokens, feats, plen, dcache)
+        tokens_buf = torch.zeros((1, S), dtype=torch.long, device=dev)
+        tokens_buf[:, :Tp] = tokens
+        return EngineState(tokens=tokens_buf, length=plen, cache=cache,
+                           dcache=dr.dcache, tree=dr.tree,
+                           done=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def _round(self, state: EngineState, ref: Optional[torch.Tensor] = None):
+        """One speculative decode round, with no host sync.
+
+        ref (optional): forced-replay reference, a [S] token buffer;
+        acceptance and the bonus token follow it instead of the live argmax.
+        """
+        e, tree = self.ecfg, state.tree
+        dev = self.device
+        Lc = state.length
+        P = self.path_len
+
+        # --- target tree verification (the mask goes in as metadata)
+        with record_function("round.verify"):
+            vmask = TreeMaskSpec(tree_mask=tree.mask[None], start=state.cache.length)
+            pos = (Lc + tree.positions)[None]
+            res = transformer.forward(self.params, self.cfg, tree.tokens[None],
+                                      state.cache, pos, vmask)
+            logits = transformer.lm_head(self.params, self.cfg, res.hidden[0])
+            feats = _target_feats(res, self.dcfg.version)[0]
+
+        # --- acceptance
+        with record_function("round.accept"):
+            if ref is not None:
+                ref_next = ref[window(Lc + 1, P, ref.shape[0])]
+                acc = accept_mod.accept_greedy(tree, logits, P, ref_next=ref_next)
+                bonus = ref_next[acc.accept_len]
+            else:
+                acc = accept_mod.accept_greedy(tree, logits, P)
+                bonus = torch.argmax(acc.sample_p)
+
+        # --- commit tokens + compact KV
+        with record_function("round.commit"):
+            path_tokens = tree.tokens[acc.path]
+            n_acc = torch.where(state.done, 0, acc.accept_len + 1)
+            S_tok = state.tokens.shape[1]
+            state.tokens[0, window(Lc, P, S_tok)] = path_tokens
+            if e.compact_impl == "pallas":
+                ck, cv = compact_rows(res.cache.k, res.cache.v, acc.path, Lc)
+                cache = KVCache(k=ck, v=cv, length=(Lc + n_acc).reshape(1))
+            else:
+                cache = compact_accepted(with_length(res.cache, Lc.reshape(1)),
+                                         acc.path[None], n_acc.reshape(1))
+            done = state.done
+            if self.eos_token_id is not None:
+                in_window = torch.arange(P, device=dev) < n_acc
+                done = done | ((path_tokens == self.eos_token_id) & in_window).any()
+            # capacity stop: no room for another round's tree + commit window
+            done = done | (Lc + n_acc + self._tail + e.tree_size >= self._tgt_len())
+
+        # --- next draft tree
+        with record_function("round.draft"):
+            ext_tokens = torch.cat([path_tokens[1:],
+                                    torch.zeros(1, dtype=torch.long, device=dev)])
+            ext_tokens = torch.where(torch.arange(P, device=dev) == acc.accept_len,
+                                     bonus, ext_tokens)
+            ext_feats = feats[acc.path]
+            dr = self._draft_round(ext_tokens, ext_feats, n_acc, state.dcache)
+
+        new_state = EngineState(tokens=state.tokens, length=Lc + n_acc,
+                                cache=cache, dcache=dr.dcache, tree=dr.tree,
+                                done=done)
+        return new_state, RoundOutput(new_tokens=path_tokens,
+                                      accept_len=n_acc - 1, done=done,
+                                      live_match=acc.live_match)
+
+    def _start(self, prompt_ids, temperature, ref=None):
+        if temperature:
+            raise NotImplementedError("temperature > 0 is not ported yet")
+        prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
+        Lp = prompt.shape[1]
+        Tp = self._bucket(Lp)
+        padded = np.zeros((1, Tp), np.int64)
+        padded[0, :Lp] = prompt
+        cache, dcache = self.init_caches()
+        toks = torch.from_numpy(padded).to(self.device)
+        with torch.no_grad():
+            state = self._prefill(toks, Lp, cache, dcache, ref=ref)
+        return prompt, Lp, state
+
+    def generate(self, prompt_ids, max_new_tokens: int = 512,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 log: bool = False, details: bool = False,
+                 temperature: Optional[float] = None):
+        """Speculative generation with a per-round host loop. Returns np token
+        ids (prompt + completion); log=True also (new_tokens, rounds);
+        details=True returns (ids, stats-dict)."""
+        del seed  # greedy: no randomness
+        prompt, Lp, state = self._start(prompt_ids, temperature)
+        out = list(prompt[0])
+        rounds = new_tokens = 0
+        accept_lens = []
+        with torch.no_grad():
+            while new_tokens < max_new_tokens:
+                state, r = self._round(state)
+                alen = int(r.accept_len)
+                if alen < 0:
+                    break
+                toks = r.new_tokens[: alen + 1].cpu().numpy()
+                rounds += 1
+                accept_lens.append(alen)
+                stop = False
+                for t in toks:
+                    out.append(int(t))
+                    new_tokens += 1
+                    if (eos_token_id is not None and t == eos_token_id) or \
+                            new_tokens >= max_new_tokens:
+                        stop = True
+                        break
+                if stop or len(out) + self.path_len + 1 >= self.ecfg.max_len:
+                    break
+        if details:
+            return np.asarray(out), {"new_tokens": new_tokens, "rounds": rounds,
+                                     "accept_lens": accept_lens}
+        if log:
+            return np.asarray(out), new_tokens, rounds
+        return np.asarray(out)
+
+    def _trim_overshoot(self, seq: np.ndarray, prompt_len: int,
+                        max_new_tokens: int) -> np.ndarray:
+        limit = prompt_len + max_new_tokens
+        if self.eos_token_id is not None:
+            hits = np.nonzero(seq[prompt_len:] == self.eos_token_id)[0]
+            if hits.size:
+                limit = min(limit, prompt_len + int(hits[0]) + 1)
+        return seq[:limit]
+
+    def _make_ref_buf(self, ft, prompt_row, max_new_tokens: int,
+                      label: str = "force_tokens") -> np.ndarray:
+        """Validate one forced-replay reference and zero-pad it to the full
+        cache length."""
+        if self.ecfg.temperature != 0.0:
+            raise ValueError(f"{label} requires a greedy engine")
+        ft = np.asarray(ft, np.int64).ravel()
+        Lp = len(prompt_row)
+        if not np.array_equal(ft[:Lp], np.asarray(prompt_row, np.int64)):
+            raise ValueError(f"{label} must start with the prompt")
+        need = Lp + max_new_tokens + self.path_len + 1
+        if ft.size < need:
+            raise ValueError(f"{label} too short: {ft.size} < {need} "
+                             "(prompt + budget + one round's commit window)")
+        buf = np.zeros((self._tgt_len(),), np.int64)
+        n = min(ft.size, buf.size)
+        buf[:n] = ft[:n]
+        return buf
+
+    def generate_fused(self, prompt_ids, max_new_tokens: int = 512,
+                       seed: int = 0, log: bool = False,
+                       temperature: Optional[float] = None,
+                       force_tokens=None):
+        """Speculative generation whose host loop syncs once per round (the
+        stop flag). May overshoot max_new_tokens by up to one round's window,
+        trimmed host-side. force_tokens: forced-replay reference starting
+        with the prompt; with log=True returns (ids, committed, rounds,
+        live_match), else with log=True (ids, committed, rounds)."""
+        del seed
+        ref = None
+        if force_tokens is not None:
+            prompt_row = np.asarray(prompt_ids, np.int64).ravel()
+            ref = torch.from_numpy(self._make_ref_buf(
+                force_tokens, prompt_row, max_new_tokens)).to(self.device)
+        prompt, Lp, state = self._start(prompt_ids, temperature, ref=ref)
+        rounds = 0
+        hits = torch.zeros((), dtype=torch.long, device=self.device)
+        with torch.no_grad():
+            while not bool(state.done | (state.length - Lp >= max_new_tokens)):
+                state, r = self._round(state, ref=ref)
+                rounds += 1
+                hits = hits + r.live_match
+            length = int(state.length)
+            toks = state.tokens[0, :length].cpu().numpy()
+        out = self._trim_overshoot(toks, Lp, max_new_tokens)
+        if log and ref is not None:
+            return out, length - Lp, rounds, int(hits)
+        if log:
+            return out, length - Lp, rounds
+        return out
+
+    def generate_batch(self, *args, **kwargs):
+        raise NotImplementedError("batched generation is not ported yet")
+
+    generate_batch_fused = generate_batch
+
+    def generate_stream(self, *args, **kwargs):
+        raise NotImplementedError("generate_stream is not ported yet")
+
+    # ------------------------------------------------------------------
+    # vanilla baseline
+    # ------------------------------------------------------------------
+
+    def _vanilla_step(self, cache: KVCache, token: torch.Tensor):
+        S = cache.max_len
+        pos = cache.length.reshape(1, 1)
+        res = transformer.forward(self.params, self.cfg, token.reshape(1, 1),
+                                  cache, pos, prefill_mask(1, S, cache.length))
+        logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, 0])
+        return res.cache, self._pick_token(logits)
+
+    def generate_vanilla(self, prompt_ids, max_new_tokens: int = 512,
+                         eos_token_id: Optional[int] = None, seed: int = 0,
+                         fused: bool = False,
+                         temperature: Optional[float] = None):
+        """Plain autoregressive greedy decoding (the baseline). fused=True
+        keeps every token on the device until the end (no per-token sync)."""
+        del seed
+        if temperature:
+            raise NotImplementedError("temperature > 0 is not ported yet")
+        prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
+        Lp = prompt.shape[1]
+        Tp = self._bucket(Lp)
+        padded = np.zeros((1, Tp), np.int64)
+        padded[0, :Lp] = prompt
+        dev = self.device
+        cache = self.init_target_cache()
+        out = list(prompt[0])
+        with torch.no_grad():
+            toks = torch.from_numpy(padded).to(dev)
+            res = transformer.forward(self.params, self.cfg, toks, cache,
+                                      torch.arange(Tp, device=dev)[None],
+                                      prefill_mask(Tp, cache.max_len, cache.length))
+            logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, Lp - 1])
+            token = self._pick_token(logits)
+            cache = with_length(res.cache, torch.full((1,), Lp, dtype=torch.long, device=dev))
+            if fused:
+                steps = [token]
+                for _ in range(max_new_tokens - 1):
+                    cache, token = self._vanilla_step(cache, token)
+                    steps.append(token)
+                for t in torch.stack(steps).cpu().numpy():
+                    out.append(int(t))
+                    if eos_token_id is not None and t == eos_token_id:
+                        break
+                return np.asarray(out)
+            for _ in range(max_new_tokens):
+                t = int(token)
+                out.append(t)
+                if eos_token_id is not None and t == eos_token_id:
+                    break
+                if len(out) + 1 >= self.ecfg.max_len:
+                    break
+                cache, token = self._vanilla_step(cache, token)
+        return np.asarray(out)

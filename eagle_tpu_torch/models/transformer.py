@@ -1,0 +1,217 @@
+"""Target-model transformer (Llama; Qwen2 qkv bias and Qwen3 qk_norm flags).
+
+Port of eagle_tpu/models/transformer.py for the bf16/fp32 dense path. Params
+are a plain dict whose "layers" entry is a list of per-layer dicts (the JAX
+package stacks them on a leading axis for `lax.scan`; here a Python loop
+walks the list). Weights keep the JAX layout [in, out], so `x @ w`.
+Attention scores and softmax run in fp32; matmuls accumulate in fp32 and
+cast to the activation dtype.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..config import ModelConfig
+from ..ops.attn_kernels import tree_attention
+from ..ops.kv_cache import KVCache, update_layer
+from ..ops.masks import TreeMaskSpec, tree_mask_full
+from .rope import apply_rope, rope_tables
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """HF-exact RMSNorm: fp32 variance, scale applied in the input dtype."""
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf.to(dtype) * weight.to(dtype)).to(dtype)
+
+
+def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
+    """x @ w for bf16/fp32 weights: fp32 accumulation, result in x.dtype."""
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with fp32 accumulation and an fp32 result (the
+    JAX package's preferred_element_type=float32). bf16 products are exact
+    in fp32, so on the card a bf16 GEMM with an fp32 output computes it
+    without widening the weights."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.to(torch.float32))
+    if x.is_cuda:
+        x2 = x.reshape(-1, x.shape[-1])
+        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Masked attention against the full KV buffer.
+
+    q: [B, T, nq, d]; k/v_cache: [B, n_kv, S, d]; mask: [B, T, S] bool.
+    fp32 scores and softmax; probs cast to q.dtype, then an fp32-accumulated
+    product with V. Returns [B, T, nq*d].
+    """
+    B, T, nq, d = q.shape
+    n_kv = k_cache.shape[1]
+    g = nq // n_kv
+    qh = q.transpose(1, 2).reshape(B, n_kv, g, T, d)
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qh.float(),
+                          k_cache.to(q.dtype).float())
+    scores = scores * (d ** -0.5)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs.float(),
+                       v_cache.to(q.dtype).float()).to(q.dtype)
+    return out.reshape(B, nq, T, d).transpose(1, 2).reshape(B, T, nq * d)
+
+
+def _mlp_dense(h: torch.Tensor, lp: dict) -> torch.Tensor:
+    gate = _dense(h, lp["w_gate"])
+    up = _dense(h, lp["w_up"])
+    return _dense(F.silu(gate) * up, lp["w_down"])
+
+
+def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start):
+    """One decoder layer; writes its K/V rows into k/v_cache in place and
+    returns the new hidden states."""
+    B, T, _ = h.shape
+    x = rms_norm(h, lp["ln1"], cfg.rms_eps)
+    q = _dense(x, lp["wq"], lp.get("bq")).reshape(B, T, cfg.num_q_heads, cfg.head_dim)
+    k = _dense(x, lp["wk"], lp.get("bk")).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = _dense(x, lp["wv"], lp.get("bv")).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    # the tree K/V land in the cache at `start` before attention; the tree
+    # kernel still reads them from the fresh k/v, and only rows < start of
+    # the cache
+    update_layer(k_cache, v_cache, k, v, start)
+    if isinstance(mask, TreeMaskSpec):
+        if cfg.attn_impl == "pallas_tree":
+            attn_out = torch.stack([
+                tree_attention(q[b], k_cache[b], v_cache[b], k[b], v[b],
+                               mask.tree_mask[b], mask.start[b])
+                for b in range(B)])
+        else:
+            dense = tree_mask_full(mask.tree_mask, k_cache.shape[2], mask.start)
+            attn_out = attention(q, k_cache, v_cache, dense)
+    else:
+        attn_out = attention(q, k_cache, v_cache, mask)
+    h = h + _dense(attn_out, lp["wo"])
+    x = rms_norm(h, lp["ln2"], cfg.rms_eps)
+    return h + _mlp_dense(x, lp)
+
+
+class ForwardResult(NamedTuple):
+    hidden: torch.Tensor           # [B, T, H] final-norm'd hidden states
+    pre_norm_hidden: torch.Tensor  # [B, T, H] last-layer output before final norm
+    taps: torch.Tensor             # [B, T, 3*H] EAGLE-3 fused features
+    cache: KVCache
+
+
+def check_dense(params) -> None:
+    """Raise on quantized leaves ({"q8"} / {"q4"} dicts): only bf16/fp32
+    weights are ported."""
+    if isinstance(params, dict):
+        if "q4" in params or "q8" in params:
+            raise NotImplementedError("quantized weights are not ported yet")
+        for v in params.values():
+            check_dense(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            check_dense(v)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE targets are not ported yet")
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention is not ported yet")
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
+            positions: torch.Tensor, mask) -> ForwardResult:
+    """Run the transformer over tokens [B, T], writing K/V at cache.length.
+
+    positions: [B, T] rope ids. mask: [B, T, S] bool over the full KV buffer,
+    or a TreeMaskSpec for tree verification.
+    """
+    check_supported(cfg)
+    h = params["embed"]["w"][tokens].to(cfg.dtype)
+    B, T, H = h.shape
+    cos, sin = rope_tables(cfg.rope, cfg.head_dim, positions)
+    start = cache.length
+    taps = [torch.zeros_like(h) for _ in range(3)]
+    for i, lp in enumerate(params["layers"]):
+        for slot, tap in enumerate(cfg.tap_layers):
+            if tap == i:
+                taps[slot] = h
+        h = _layer(h, lp, cfg, cache.k[i], cache.v[i], cos, sin, mask, start)
+    new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + T)
+    hidden = rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return ForwardResult(hidden=hidden, pre_norm_hidden=h,
+                         taps=torch.cat(taps, dim=-1), cache=new_cache)
+
+
+def lm_head(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden [.., H] → fp32 logits [.., V]."""
+    w = params["embed"]["w"].t() if cfg.tie_embeddings else params["lm_head"]
+    return matmul_f32(hidden, w)
+
+
+# ---------------------------------------------------------------------------
+# Initialization (random params from a seed)
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None) -> dict:
+    """Random params (normal * 0.02, unit norms), generated on `device`
+    ("cuda" unless the caller passes "cpu") from an explicit torch.Generator
+    seeded with `seed`."""
+    check_supported(cfg)
+    dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    H, Fi = cfg.hidden_size, cfg.intermediate_size
+
+    def rnd(*shape):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return w.mul_(0.02).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev, dtype=dtype)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {"ln1": ones(H), "ln2": ones(H),
+              "wq": rnd(H, cfg.q_dim), "wk": rnd(H, cfg.kv_dim),
+              "wv": rnd(H, cfg.kv_dim), "wo": rnd(cfg.q_dim, H),
+              "w_gate": rnd(H, Fi), "w_up": rnd(H, Fi), "w_down": rnd(Fi, H)}
+        if cfg.attn_qkv_bias:
+            lp["bq"] = torch.zeros(cfg.q_dim, device=dev, dtype=dtype)
+            lp["bk"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+            lp["bv"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+        if cfg.qk_norm:
+            lp["q_norm"] = ones(cfg.head_dim)
+            lp["k_norm"] = ones(cfg.head_dim)
+        layers.append(lp)
+    params = {"embed": {"w": rnd(cfg.vocab_size, H)}, "layers": layers,
+              "final_norm": ones(H)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = rnd(H, cfg.vocab_size)
+    return params

@@ -1,0 +1,194 @@
+"""The main path's two CUDA kernels, with their plain PyTorch versions.
+
+- `tree_attention` (csrc/tree_attention.cu) replaces the Pallas kernel
+  eagle_tpu/ops/pallas_attn.py:_tree_attn_kernel; its plain version is
+  `tree_attention_ref`, a port of pallas_attn.tree_attention_xla.
+- `compact_rows` (csrc/compact_rows.cu) replaces
+  pallas_attn.py:_compact_kernel; its plain version is
+  ops/kv_cache.compact_accepted (`compact_rows_plain`).
+
+Each wrapper takes its plain version only for CPU tensors. A CUDA tensor goes
+to the kernel, or the wrapper raises. `LAUNCHES` counts kernel launches per
+wrapper (a plain integer each), so a run can show the path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .kv_cache import compact_rows_plain
+
+NEG_INF = -1e30
+
+LAUNCHES = {"tree_attention": 0, "compact_rows": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib(name: str, argtypes) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name + "_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    """Tensors off the CPU go to the kernel: they must be CUDA tensors."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
+                         f"{t.device} (CPU tensors take the plain version)")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _device_int32(x, device) -> torch.Tensor:
+    """A one-element int32 tensor on `device` (a device scalar stays there:
+    no host sync)."""
+    if not torch.is_tensor(x):
+        x = torch.tensor(int(x), device=device)
+    return x.reshape(1).to(device=device, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# B1: tree-verify attention
+# ---------------------------------------------------------------------------
+
+def tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
+    """Plain version: the same math as transformer.attention over the
+    concatenated prefix + tree key space.
+
+    q: [T, nq, d]; k/v_cache: [n_kv, S, d] (rows < start attended);
+    k/v_tree: [Tk, n_kv, d]; tree_mask: [T, Tk] bool; start: scalar.
+    Returns [T, nq*d] in q.dtype.
+    """
+    T, nq, d = q.shape
+    n_kv, S, _ = k_cache.shape
+    g = nq // n_kv
+    start = torch.as_tensor(start, device=q.device).reshape(())
+    mask_p = torch.arange(S, device=q.device) < start                  # [S]
+    qh = q.reshape(T, n_kv, g, d).permute(1, 2, 0, 3).float()          # [h,g,T,d]
+    kt = k_tree.transpose(0, 1).float()                                # [h,Tk,d]
+    vt = v_tree.transpose(0, 1).float()
+    scale = d ** -0.5
+    sp = torch.einsum("hgtd,hsd->hgts", qh, k_cache.float()) * scale
+    sp = torch.where(mask_p[None, None, None, :], sp, NEG_INF)
+    st = torch.einsum("hgtd,hsd->hgts", qh, kt) * scale
+    st = torch.where(tree_mask[None, None], st, NEG_INF)
+    p = torch.softmax(torch.cat([sp, st], dim=-1), dim=-1)
+    v_all = torch.cat([v_cache.float(), vt], dim=1)
+    o = torch.einsum("hgts,hsd->hgtd", p, v_all).to(q.dtype)
+    return o.permute(2, 0, 1, 3).reshape(T, nq * d)
+
+
+_TREE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
+    """Fused tree-verify attention for one sequence (layouts as
+    `tree_attention_ref`). CUDA tensors run csrc/tree_attention.cu; CPU
+    tensors run the plain version."""
+    if q.device.type == "cpu":
+        return tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree,
+                                  tree_mask, start)
+    _require_cuda("tree_attention", q)
+    T, nq, d = q.shape
+    n_kv, S, d2 = k_cache.shape
+    Tk = k_tree.shape[0]
+    dev = q.device
+    tensors = (q, k_cache, v_cache, k_tree, v_tree, tree_mask)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("tree_attention: all tensors must be on one device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in tensors[1:5]):
+        raise TypeError(f"tree_attention: q/k/v must share one dtype of "
+                        f"float32/bfloat16, got {[t.dtype for t in tensors[:5]]}")
+    if tree_mask.dtype != torch.bool:
+        raise TypeError("tree_attention: tree_mask must be bool")
+    if (d2 != d or d != 128 or nq % n_kv != 0
+            or v_cache.shape != k_cache.shape
+            or k_tree.shape != (Tk, n_kv, d) or v_tree.shape != k_tree.shape
+            or tree_mask.shape != (T, Tk)):
+        raise ValueError(
+            f"tree_attention: bad shapes q{tuple(q.shape)} "
+            f"k_cache{tuple(k_cache.shape)} k_tree{tuple(k_tree.shape)} "
+            f"mask{tuple(tree_mask.shape)} (head_dim must be 128)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tree_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors[:5]):
+        raise ValueError("tree_attention: q/k/v must be 16-byte aligned")
+    # temporaries passed by pointer (st here, p32 below) may be freed when the
+    # wrapper returns: the caching allocator reuses their memory only for work
+    # queued later on the same stream, so the kernel still reads them intact
+    st = _device_int32(start, dev)
+    out = torch.empty((T, nq * d), dtype=q.dtype, device=dev)
+    fn = _lib("tree_attention", _TREE_ARGS)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             k_tree.data_ptr(), v_tree.data_ptr(), tree_mask.data_ptr(),
+             st.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], T, Tk, nq,
+             n_kv, S, d, d ** -0.5, _stream())
+    _check_launch("tree_attention", err)
+    LAUNCHES["tree_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B2: in-place accepted-branch KV compaction
+# ---------------------------------------------------------------------------
+
+_COMPACT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def compact_rows(k, v, path, start):
+    """Move rows start + path[i] → start + i (i < P) of every layer and kv
+    head of k/v [L, 1, n_kv, S, d], in place; returns (k, v).
+
+    path: [P] node indices within the tree window; start: scalar prefix
+    length (a device tensor stays on the device). Only the P accepted rows
+    move. CUDA tensors run csrc/compact_rows.cu; CPU tensors run the plain
+    version (ops/kv_cache.compact_accepted's row moves).
+    """
+    if k.device.type == "cpu":
+        compact_rows_plain(k, v, path, torch.as_tensor(start, device=k.device))
+        return k, v
+    _require_cuda("compact_rows", k)
+    L, B, n_kv, S, d = k.shape
+    P = path.shape[0]
+    dev = k.device
+    if v.shape != k.shape or v.dtype != k.dtype or B != 1:
+        raise ValueError(f"compact_rows: k/v must share one [L, 1, n_kv, S, d] "
+                         f"shape and dtype, got {tuple(k.shape)}, {tuple(v.shape)}")
+    if v.device != dev or path.device != dev:
+        raise ValueError("compact_rows: all tensors must be on one device")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("compact_rows: k/v must be contiguous")
+    row_bytes = d * k.element_size()
+    if row_bytes % 16 or P < 1 or P > S or 2 * P * row_bytes > 48 * 1024:
+        raise ValueError(f"compact_rows: unsupported P={P}, row of {row_bytes} bytes "
+                         "(rows must be a multiple of 16 bytes)")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("compact_rows: k/v must be 16-byte aligned")
+    p32 = path.to(torch.int32).contiguous()
+    st = _device_int32(start, dev)
+    fn = _lib("compact_rows", _COMPACT_ARGS)
+    err = fn(k.data_ptr(), v.data_ptr(), p32.data_ptr(), st.data_ptr(),
+             L * B * n_kv, P, S, row_bytes, _stream())
+    _check_launch("compact_rows", err)
+    LAUNCHES["compact_rows"] += 1
+    return k, v

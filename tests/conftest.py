@@ -20,3 +20,8 @@ jax.config.update("jax_platforms", "cpu")
 # XLA-CPU's default matmul runs at reduced precision; parity tests vs
 # HF/torch fp32 need full fp32 accumulation.
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (sm_90a) and nvcc; skips elsewhere")

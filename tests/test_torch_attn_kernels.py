@@ -1,0 +1,135 @@
+"""The port's kernel module (eagle_tpu_torch/ops/attn_kernels.py) against the
+JAX package: plain tree attention vs pallas_attn.tree_attention_xla and the
+interpreted Pallas kernel, plain compaction vs compact_accepted and the
+interpreted compact_rows, and the wrappers' device rules. CPU, fp32."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eagle_tpu.ops import pallas_attn
+from eagle_tpu.ops.kv_cache import KVCache as JKVCache
+from eagle_tpu.ops.kv_cache import compact_accepted as j_compact_accepted
+from eagle_tpu.ops.tree import ancestor_mask as j_ancestor_mask
+from eagle_tpu_torch.ops import _build
+from eagle_tpu_torch.ops import attn_kernels as ak
+from eagle_tpu_torch.ops.kv_cache import KVCache, compact_accepted
+
+from torch_port_util import t
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(T, Tk, nq, nkv, d, S, seed, square=True):
+    rng = np.random.default_rng(seed)
+    arr = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, k, v = arr(T, nq, d), arr(nkv, S, d), arr(nkv, S, d)
+    kt, vt = arr(Tk, nkv, d), arr(Tk, nkv, d)
+    if square:
+        parents = np.array([0] + [rng.integers(0, i) for i in range(1, T)])
+        tm = np.asarray(j_ancestor_mask(jnp.asarray(parents, jnp.int32), T))
+    else:  # draft-beam shape: k queries against a depth*k ancestor slab
+        tm = rng.random((T, Tk)) < 0.3
+        tm[:, 0] = True
+    return q, k, v, kt, vt, tm
+
+
+@pytest.mark.parametrize("T,Tk,nq,nkv,d,S,start", [
+    (16, 16, 4, 2, 8, 128, 37),
+    (61, 61, 8, 4, 64, 512, 0),
+    (61, 61, 8, 8, 64, 512, 500),
+    (26, 26, 4, 4, 32, 256, 100),
+    (10, 40, 4, 2, 16, 128, 77),     # non-square beam shape
+    (13, 40, 4, 4, 16, 128, 77),     # g = 1, non-square
+])
+def test_tree_attention_ref_matches_jax(T, Tk, nq, nkv, d, S, start):
+    args = _inputs(T, Tk, nq, nkv, d, S, seed=T + S, square=T == Tk)
+    st = jnp.int32(start)
+    jargs = [jnp.asarray(a) for a in args]
+    ref_xla = np.asarray(pallas_attn.tree_attention_xla(*jargs, st))
+    ref_pallas = np.asarray(pallas_attn.tree_attention(
+        *jargs, st, blk=64, interpret=True))
+    targs = [t(a) for a in args]
+    out_ref = ak.tree_attention_ref(*targs, torch.tensor(start))
+    out_wrap = ak.tree_attention(*targs, torch.tensor(start))   # CPU → plain
+    assert out_ref.shape == (T, nq * d)
+    for out in (out_ref, out_wrap):
+        np.testing.assert_allclose(out.numpy(), ref_xla, **TOL)
+        np.testing.assert_allclose(out.numpy(), ref_pallas, **TOL)
+    assert ak.LAUNCHES == {"tree_attention": 0, "compact_rows": 0}
+
+
+@pytest.mark.parametrize("start,path,alen", [
+    (20, [0, 3, 7, 7, 7, 7, 7], 3),      # repeats its last node: overlap
+    (0, [0, 1, 2, 5, 9, 12, 14], 6),
+    (41, [0, 0, 0, 0, 0, 0, 0], 0),
+])
+def test_compact_matches_jax(start, path, alen):
+    rng = np.random.default_rng(4)
+    L, n_kv, S, d = 3, 2, 64, 8
+    k = rng.normal(size=(L, 1, n_kv, S, d)).astype(np.float32)
+    v = rng.normal(size=(L, 1, n_kv, S, d)).astype(np.float32)
+    P = len(path)
+    jcache = JKVCache(k=jnp.asarray(k), v=jnp.asarray(v),
+                      length=jnp.asarray([start], jnp.int32))
+    jref = j_compact_accepted(jcache, jnp.asarray([path], jnp.int32),
+                              jnp.asarray([alen], jnp.int32))
+    jk, jv = pallas_attn.compact_rows(jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(path, jnp.int32),
+                                      jnp.int32(start), tree_size=16,
+                                      interpret=True)
+    # port: plain compaction, and the wrapper on CPU tensors (both in place)
+    pcache = compact_accepted(KVCache(k=t(k), v=t(v), length=torch.tensor([start])),
+                              torch.tensor([path]), torch.tensor([alen]))
+    assert int(pcache.length[0]) == int(jref.length[0]) == start + alen
+    wk, wv = t(k), t(v)
+    ak.compact_rows(wk, wv, torch.tensor(path), torch.tensor(start))
+    for got in ((pcache.k, pcache.v), (wk, wv)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jref.k))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(jref.v))
+        # the Pallas kernel writes an 8-row padded window: rows past
+        # start + 8 and below start + P are the defined ones
+        for g, j in ((got[0], jk), (got[1], jv)):
+            np.testing.assert_array_equal(g.numpy()[..., : start + P, :],
+                                          np.asarray(j)[..., : start + P, :])
+            np.testing.assert_array_equal(g.numpy()[..., start + 8:, :],
+                                          np.asarray(j)[..., start + 8:, :])
+
+
+def test_wrappers_refuse_non_cuda_devices():
+    """Tensors that are neither on the CPU nor on a CUDA device cannot take
+    the plain path: the wrappers raise instead of falling back."""
+    m = lambda *s: torch.empty(s, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ak.tree_attention(m(4, 2, 8), m(1, 16, 8), m(1, 16, 8), m(4, 1, 8),
+                          m(4, 1, 8), torch.empty(4, 4, dtype=torch.bool,
+                                                  device="meta"), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ak.compact_rows(m(2, 1, 1, 16, 8), m(2, 1, 1, 16, 8),
+                        torch.zeros(3, dtype=torch.long, device="meta"), 2)
+    assert ak.LAUNCHES == {"tree_attention": 0, "compact_rows": 0}
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """Asking for a kernel where no CUDA toolkit exists raises; nothing is
+    silently replaced by the plain version."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("tree_attention")
+
+
+def test_cuda_sources_present_and_named():
+    """Every CUDA source of the build is in the package and exposes the
+    C entry point its wrapper binds."""
+    import os
+    for name in _build.SOURCES:
+        path = os.path.join(_build.CSRC_DIR, name + ".cu")
+        src = open(path).read()
+        assert f'extern "C" int {name}_launch(' in src
+        assert "Replaces: eagle_tpu/ops/pallas_attn.py" in src

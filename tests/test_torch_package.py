@@ -1,0 +1,147 @@
+"""Package rules of the PyTorch port: no JAX and nothing of eagle_tpu in
+eagle_tpu_torch/ or chip_smoke.py, CUDA by default, configs that mean the same
+thing on both sides, and a chip smoke script that fails without a card."""
+
+import ast
+import dataclasses
+import filecmp
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import eagle_tpu_torch
+from eagle_tpu import config as jconfig
+from eagle_tpu_torch import convert
+from eagle_tpu_torch.config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig
+from eagle_tpu_torch.engine.engine import EagleEngine
+from eagle_tpu_torch.models import draft as draft_mod
+from eagle_tpu_torch.models import transformer
+from eagle_tpu_torch.ops.kv_cache import init_cache
+
+from test_engine_greedy import make_engine
+from torch_port_util import np_tree, port_engine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(eagle_tpu_torch.__file__))
+FORBIDDEN = {"jax", "jaxlib", "eagle_tpu"}
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_top_levels(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_eagle_tpu_imports(path):
+    bad = sorted(set(_imported_top_levels(path)) & FORBIDDEN)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_forbidden_names_are_matched_exactly():
+    """`eagle_tpu_torch` starts with `eagle_tpu`: the scan compares whole
+    top-level names, so the port's own imports are allowed."""
+    names = set(_imported_top_levels(os.path.join(ROOT, "chip_smoke.py")))
+    assert "eagle_tpu_torch" in names and not names & FORBIDDEN
+
+
+def test_engine_defaults_to_cuda(monkeypatch):
+    pe = port_engine(make_engine(1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EagleEngine(pe.params, pe.cfg, pe.dparams, pe.dcfg, pe.ecfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eagle_tpu_torch.resolve_device("cuda")
+    assert eagle_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+_ENTRY_POINTS = {
+    "transformer.init_params": lambda j: transformer.init_params(convert.model_config(j.cfg)),
+    "draft.init_params": lambda j: draft_mod.init_params(convert.draft_config(j.dcfg)),
+    "convert.to_tensor": lambda j: convert.to_tensor(np.zeros(3)),
+    "convert.target_params": lambda j: convert.target_params(np_tree(j.params)),
+    "convert.draft_params": lambda j: convert.draft_params(np_tree(j.dparams)),
+    "init_cache": lambda j: init_cache(1, 1, 1, 8, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_default_to_cuda(monkeypatch, name):
+    """Without device="cpu" every entry point that makes tensors asks for the
+    card, and raises when CUDA is absent instead of running on the CPU."""
+    jeng = make_engine(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ENTRY_POINTS[name](jeng)
+
+
+def test_chip_smoke_fails_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_draft_config_copy_is_the_published_one():
+    assert filecmp.cmp(os.path.join(CONFIG_DIR, "llama3_8B_eagle3_config.json"),
+                       os.path.join(ROOT, "eagle_tpu", "train", "configs",
+                                    "llama3_8B_eagle3_config.json"), shallow=False)
+
+
+@pytest.mark.parametrize("name", ["llama3_8B_target.json",
+                                  "llama3_8B_eagle3_config.json"])
+def test_configs_parse_the_same_on_both_sides(name):
+    path = os.path.join(CONFIG_DIR, name)
+    if "eagle3" in name:
+        j, p = (jconfig.DraftConfig.from_hf_json(path, version=3),
+                DraftConfig.from_hf_json(path, version=3))
+        assert p == convert.draft_config(j, dtype=torch.bfloat16)
+    else:
+        j, p = jconfig.ModelConfig.from_hf_json(path), ModelConfig.from_hf_json(path)
+        assert p == convert.model_config(j, dtype=torch.bfloat16)
+        assert (p.hidden_size, p.intermediate_size, p.num_layers, p.num_q_heads,
+                p.num_kv_heads, p.head_dim, p.vocab_size) == (
+            4096, 14336, 32, 32, 8, 128, 128256)
+        assert p.rope.scaling_type == "llama3" and p.rope.theta == 500000.0
+        assert p.tap_layers == j.tap_layers == (2, 16, 29)
+    assert j.dtype == jnp.bfloat16 and p.dtype == torch.bfloat16
+
+
+def test_engine_config_defaults_match():
+    j, p = jconfig.EngineConfig(), EngineConfig()
+    for f in dataclasses.fields(j):
+        assert getattr(p, f.name) == getattr(j, f.name), f.name
+    assert p.tree_size == j.tree_size
+
+
+def test_convert_keeps_bf16_bits_and_index_types():
+    import ml_dtypes
+
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(4, 6)).astype(ml_dtypes.bfloat16)
+    tw = convert.to_tensor(w, device="cpu")
+    assert tw.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tw.view(torch.int16).numpy(), w.view(np.int16))
+    assert convert.to_tensor(np.arange(3, dtype=np.int32), device="cpu").dtype == torch.long
+    assert convert.to_tensor(np.ones(3, bool), device="cpu").dtype == torch.bool
+    with pytest.raises(NotImplementedError):
+        convert.target_params({"lm_head": {"q8": np.zeros(2), "scale": np.ones(2)}},
+                              device="cpu")
