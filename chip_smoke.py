@@ -5,13 +5,21 @@
 Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi); build the CUDA
      kernels from eagle_tpu_torch/csrc (one nvcc per source, in parallel);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time kernel / plain / library call / bound;
-  3. exactness: a small fp32 model with both kernels on — greedy speculative
-     output (generate, generate_fused) equals generate_vanilla;
-  4. the main path at full width: a Llama-3.1-8B-wide bf16 target and an
-     EAGLE-3 draft (seeded random weights made on the card) answer three
-     requests with generate_fused; then forced replay of a vanilla trajectory;
+  2. hold each of the five kernels against its plain PyTorch version on the
+     card at the main paths' shapes (tree attention and compaction within a
+     stated tolerance / exactly; the w4a8 matmuls bit for bit and invariant
+     in the number of rows; the fused scorer with identical ids), and time
+     kernel / plain / library call / bound;
+  3. exactness: small fp32 models with the kernels on: greedy speculative
+     output (generate, generate_fused) equals generate_vanilla, for the
+     dense target, for an int4 target + int4 draft + fused scoring, and for
+     an int8 draft + fused scoring;
+  4. the main paths at full width (Llama-3.1-8B widths, EAGLE-3 draft,
+     seeded random weights made on the card): (a) the bf16 path answers one
+     request with generate_fused, (b) the int4 serving path (w4a8 target,
+     int4 draft, fused draft scoring) answers three; each then runs the
+     vanilla baseline and a forced replay of its trajectory, and the launch
+     counts of every kernel are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}.
 
@@ -20,6 +28,7 @@ Exits non-zero without a result when CUDA is unavailable.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,11 +44,15 @@ from eagle_tpu_torch.models import draft as draft_mod
 from eagle_tpu_torch.models import transformer
 from eagle_tpu_torch.ops import _build
 from eagle_tpu_torch.ops import attn_kernels as ak
+from eagle_tpu_torch.ops import quant as tq
+from eagle_tpu_torch.ops import quant4 as tq4
+from eagle_tpu_torch.ops import score_topk as stk
 from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window
 from eagle_tpu_torch.ops.tree import ancestor_mask
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core peak (data sheet)
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 kernel vs plain: order of sums only
 # bf16: kernel and plain version both compute in f32 from the same bf16 inputs
 # and differ only in the order of sums and the final rounding to bf16. Against
@@ -231,11 +244,218 @@ def check_compact_rows(dev, flush) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
 
 
+
+def _w4_bound(M, K, N, G):
+    """Least time for one w4a8 matmul: the bytes it must move (packed words,
+    scales, int8 rows, row sums, f32 output) against HBM, its integer
+    operations against the int8 tensor-core peak."""
+    nbytes = K * N // 2 + 4 * G * N + M * K + 4 * M * G + 4 * M * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / INT8_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes
+
+
+def _rand_packed(dev, gen, K, N, group=128, blocks=1):
+    w = torch.randn((K, N), generator=gen, device=dev).mul_(0.02)
+    return tq4.pack_w4(w, group, blocks)
+
+
+def check_w4_matmul(dev, flush) -> list[dict]:
+    """B3 (qdense4) and B4 (qdense4_stacked) against qdense4_ref: bit for bit
+    (tolerance: none) at the full-width shapes, and row-invariant in M."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    L = L_TGT
+    rows = lambda M, K: torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    worst = {"B3": 0.0, "B4": 0.0}     # max |kernel - qdense4_ref| over every comparison
+
+    def same(tag, got, ref):
+        torch.cuda.synchronize()
+        worst[tag[1:3]] = max(worst[tag[1:3]], max_err(got, ref))
+        if not torch.equal(got, ref):
+            fail(f"{tag}: differs from qdense4_ref, max abs "
+                 f"{max_err(got, ref):.3e} (tolerance: bit-identical)")
+
+    # B4: every per-layer shape of the target, stacked [32, K/8, N]; only
+    # layers 0 and 31 are filled and used. gate/up and down at four M, the
+    # attention projections at the verify's and the vanilla step's M.
+    stacked = {}
+    for (K, N), Ms in (((4096, 14336), (256, 61, 10, 1)), ((14336, 4096), (256, 61, 10, 1)),
+                       ((4096, 4096), (61, 1)), ((4096, 1024), (61, 1))):
+        st: dict = {}
+        for layer in (0, L - 1):
+            tq4.stack_layer(st, "w", _rand_packed(dev, gen, K, N), layer, L)
+        stacked[(K, N)] = st["w"]
+        for layer in (0, L - 1):
+            w = tq4.Stacked4(st["w"]["q4"], st["w"]["scale"], layer)
+            x = rows(Ms[0], K)
+            full = None
+            for M in Ms:
+                got = tq4.qdense4_stacked(x[:M], w, out_dtype=torch.float32)
+                same(f"[B4] {K}x{N} layer {layer} M={M}", got,
+                     tq4.qdense4_stacked_ref(x[:M], w, out_dtype=torch.float32))
+                full = got if full is None else full
+                if not torch.equal(got, full[:M]):
+                    fail(f"[B4] {K}x{N} layer {layer}: rows of the M={M} call differ "
+                         f"from the same rows of the M={Ms[0]} call")
+            log(f"[B4] {K}x{N} layer {layer:2d}: bit-identical to qdense4_ref at "
+                f"M = {sorted(Ms)}; rows invariant in M")
+    # B3: the target's lm_head and the draft's wqkv at four M; the draft's wo,
+    # wgu, w_down and fc at the extension forward's largest M and at M = 1
+    heads = {}
+    for (K, N), Ms in (((4096, 128256), (256, 61, 10, 1)), ((8192, 6144), (256, 61, 10, 1)),
+                       ((4096, 4096), (61, 1)), ((4096, 28672), (61, 1)),
+                       ((14336, 4096), (61, 1)), ((12288, 4096), (61, 1))):
+        qw = heads[(K, N)] = _rand_packed(dev, gen, K, N)
+        x = rows(Ms[0], K)
+        for M in Ms:
+            same(f"[B3] {K}x{N} M={M}", tq4.qdense4(x[:M], qw, out_dtype=torch.float32),
+                 tq4.qdense4_ref(x[:M], qw, out_dtype=torch.float32))
+        y61 = tq4.qdense4(x[:61], qw)
+        for i in (0, 17, 60):
+            if not torch.equal(tq4.qdense4(x[i:i + 1], qw), y61[i:i + 1]):
+                fail(f"[B3] {K}x{N}: row {i} of the M=61 call differs from the M=1 call")
+        log(f"[B3] {K}x{N}: bit-identical to qdense4_ref at M = {sorted(Ms)}; "
+            "row i of M=61 == the M=1 call, bitwise")
+        if (K, N) not in ((4096, 128256), (4096, 4096)):
+            del heads[(K, N)]
+    # blocked (blocks=2, same group: bit-identical to blocks=1 too), a tiny
+    # group with ragged N, and a bias with an fp32 row
+    w = torch.randn((1024, 200), generator=gen, device=dev).mul_(0.02)
+    x = torch.randn((9, 1024), generator=gen, device=dev)
+    b = torch.randn(200, generator=gen, device=dev)
+    one, two = tq4.pack_w4(w), tq4.pack_w4(w, blocks=2)
+    same("[B3] blocks=2", tq4.qdense4(x, two, b), tq4.qdense4_ref(x, two, b))
+    same("[B3] blocks=2 vs blocks=1", tq4.qdense4(x, two, b), tq4.qdense4(x, one, b))
+    tiny = tq4.pack_w4(torch.randn((64, 37), generator=gen, device=dev), group=16)
+    xt = torch.randn((7, 64), generator=gen, device=dev)
+    same("[B3] group=16, N=37", tq4.qdense4(xt, tiny), tq4.qdense4_ref(xt, tiny))
+    log("[B3] blocks=2 (== blocks=1), group=16 with ragged N=37: bit-identical")
+    # the packer gives the same words and scales on the card and on the host
+    for blocks in (1, 2):
+        a, c = tq4.pack_w4(w.cpu(), blocks=blocks), tq4.pack_w4(w, blocks=blocks)
+        if not (torch.equal(a["q4"], c["q4"].cpu()) and torch.equal(a["scale"], c["scale"].cpu())):
+            fail(f"pack_w4(blocks={blocks}) differs between the card and the CPU")
+    log("[B3] pack_w4 on the card == pack_w4 on the CPU (words and scales)")
+
+    # timing at the main path's shapes (L2 flushed before every call)
+    out = []
+    for name, tag, (K, N), entry in (
+            ("qdense4_stacked", "B4", (4096, 14336), "eagle_tpu/ops/quant4.py:442"),
+            ("qdense4", "B3", (4096, 128256), "eagle_tpu/ops/quant4.py:343")):
+        G = K // 128
+        for M in (1, 61):
+            x = rows(M, K)
+            wb = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+            if tag == "B4":
+                st = stacked[(K, N)]
+                w = tq4.Stacked4(st["q4"], st["scale"], L - 1)
+                run, plain = (lambda: tq4.qdense4_stacked(x, w)), (lambda: tq4.qdense4_stacked_ref(x, w))
+            else:
+                qw = heads[(K, N)]
+                run, plain = (lambda: tq4.qdense4(x, qw)), (lambda: tq4.qdense4_ref(x, qw))
+            ms = device_time_ms(run, flush=flush)
+            xq, _, rs = tq4.quantize_for_w4(x, G)
+            q4, sc, lay = ((w.q4, w.scale, w.layer) if tag == "B4"
+                           else (qw["q4"], qw["scale"], None))
+            kernel_ms = device_time_ms(
+                lambda: tq4.w4_kernel(name, xq, rs, q4, sc, 1, lay), flush=flush)
+            plain_ms = device_time_ms(plain, reps=5, flush=flush)
+            mm_ms = device_time_ms(lambda: torch.mm(x, wb), flush=flush)
+            del wb
+            bound_ms, bound_by, nbytes = _w4_bound(M, K, N, G)
+            log(f"[{tag}] [{M},{K}]x[{K},{N}]: wrapper (row quantization + kernel) "
+                f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}; {nbytes} B); for scale, bf16 torch.mm {mm_ms:.4f} ms")
+            if M == 61:
+                out.append({"name": name, "route": "cuda",
+                            "source": "eagle_tpu_torch/csrc/w4_matmul.cu",
+                            "replaces": entry, "max_abs_err": worst[tag], "ms": ms,
+                            "kernel_only_ms": kernel_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": None,
+                            "library_note": "no one PyTorch call computes this function",
+                            "shape": f"[{M},{K}]x[{K},{N}] bf16 rows"})
+    # every per-layer shape of the int4 target at the vanilla step's, the
+    # verify's and a padded prompt's M (layer 31 of the stack), for PERF.md
+    for (K, N), st in stacked.items():
+        for M in (1, 61, 1024):
+            xq, _, rs = tq4.quantize_for_w4(rows(M, K), K // 128)
+            ms = device_time_ms(lambda: tq4.w4_kernel(
+                "qdense4_stacked", xq, rs, st["q4"], st["scale"], 1, L - 1),
+                reps=10, flush=flush)
+            bound_ms, bound_by, _ = _w4_bound(M, K, N, K // 128)
+            log(f"[B4] [{M},{K}]x[{K},{N}]: kernel alone {ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by})")
+    return out[::-1]
+
+
+def check_score_topk(dev, flush) -> dict:
+    """B5 against score_topk_ref: ids identical, scores within stk.SCORE_TOL."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst = 0.0
+    K, V, k = 4096, 32000, 10
+    heads = {}
+    for kind in ("w4", "w8"):
+        for (Kc, Vc, kc) in ((K, V, k), (256, 1000, 16)):     # 1000: ragged tiles
+            w = torch.randn((Kc, Vc), generator=gen, device=dev).mul_(0.05)
+            qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+            if Vc == V:
+                heads[kind] = qw
+            for dtype in (torch.float32, torch.bfloat16):
+                for M in (1, 10, 32):
+                    h = torch.randn((M, Kc), generator=gen, device=dev).to(dtype)
+                    lp, ids = stk.score_topk_quant(h, qw, kc)
+                    ref_lp, ref_ids = stk.score_topk_ref(h, qw, kc)
+                    torch.cuda.synchronize()
+                    if not torch.equal(ids, ref_ids):
+                        fail(f"[B5] {kind} V={Vc} M={M} {dtype}: ids differ from score_topk_ref")
+                    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+                    worst = max(worst, max_err(lp, ref_lp))
+        # forced ties across far-apart tiles resolve by ascending index
+        w = torch.zeros((256, 1000), device=dev)
+        for c in (900, 7, 450, 64, 63):
+            w[:, c] = 0.5
+        qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+        _, ids = stk.score_topk_quant(torch.ones((2, 256), device=dev), qw, 5)
+        if ids[0].tolist() != [7, 63, 64, 450, 900] or not torch.equal(
+                ids, stk.score_topk_ref(torch.ones((2, 256), device=dev), qw, 5)[1]):
+            fail(f"[B5] {kind}: forced ties gave {ids[0].tolist()}")
+        log(f"[B5] {kind}: ids identical at V = 32000 and 1000, M = 1, 10, 32, f32 and "
+            f"bf16 rows, forced ties in index order; scores max abs err so far "
+            f"{worst:.3e} (tolerance {stk.SCORE_TOL})")
+    h = torch.randn((10, K), generator=gen, device=dev).to(torch.bfloat16)
+    res = None
+    for kind in ("w8", "w4"):
+        qw = heads[kind]
+        ms = device_time_ms(lambda: stk.score_topk_quant(h, qw, k), flush=flush)
+        plain_ms = device_time_ms(lambda: stk.score_topk_ref(h, qw, k), reps=10, flush=flush)
+        wbytes = K * V // 2 + 4 * (K // 128) * V if kind == "w4" else K * V + 4 * V
+        nbytes = wbytes + 10 * K + 4 * 10 * (K // 128) + 4 * 10 + 8 * 10 * k
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * 10 * K * V / INT8_OPS_PER_S
+        bound_ms, bound_by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+        log(f"[B5] {kind} [10,{K}]x[{K},{V}] k={k} bf16 rows: wrapper (row quantization "
+            f"+ two kernels) {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {nbytes} B)")
+        res = {"name": "score_topk_quant", "route": "cuda",
+               "source": "eagle_tpu_torch/csrc/score_topk.cu",
+               "replaces": "eagle_tpu/ops/score_topk.py:238", "max_abs_err": worst,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None,
+               "library_note": "no one PyTorch call computes this function",
+               "shape": f"w4 [10,{K}]x[{K},{V}] k={k} bf16 rows"}
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 3: greedy speculative == vanilla in fp32 with both kernels on
+# phase 3: greedy speculative == vanilla in fp32 with the kernels on
 # ---------------------------------------------------------------------------
 
 def check_exactness(dev) -> None:
+    """fp32: generate == generate_fused == generate_vanilla for (a) the dense
+    target, (b) an int4 target + int4 draft + fused scoring, (c) the dense
+    target with an int8 draft + fused scoring. Every kernel must launch."""
     cfg = ModelConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
                       num_layers=4, num_q_heads=8, num_kv_heads=2, head_dim=128,
                       dtype=torch.float32, attn_impl="pallas_tree")
@@ -247,43 +467,79 @@ def check_exactness(dev) -> None:
                         compact_impl="pallas")
     params = transformer.init_params(cfg, seed=10, device=dev)
     dparams = draft_mod.init_params(dcfg, seed=11, device=dev)
-    eng = EagleEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
+    q4 = dict(draft_quant="int4", fuse_scoring=True)
+    q8 = dict(draft_quant="int8", fuse_scoring=True)
+    cases = (
+        ("dense target, dense draft", params, ecfg,
+         ("tree_attention", "compact_rows")),
+        ("int4 target, int4 draft, fused scoring",
+         tq4.quantize_target_params4(params), dataclasses.replace(ecfg, **q4),
+         tuple(ak.LAUNCHES)),
+        ("dense target, int8 draft, fused scoring", params,
+         dataclasses.replace(ecfg, **q8),
+         ("tree_attention", "compact_rows", "score_topk_quant")))
     rng = np.random.default_rng(2)
-    ak.reset_launch_counts()
-    for n in (5, 40, 130):
-        prompt = rng.integers(0, cfg.vocab_size, n)
-        van = eng.generate_vanilla(prompt, max_new_tokens=64)
-        spec = eng.generate(prompt, max_new_tokens=64)
-        fused = eng.generate_fused(prompt, max_new_tokens=64)
-        for name, out in (("generate", spec), ("generate_fused", fused)):
-            if len(out) != len(van) or not np.array_equal(out, van):
-                bad = int(np.argmax(out[: len(van)] != van[: len(out)]))
-                fail(f"fp32 {name} != generate_vanilla (prompt {n}, index {bad})")
-        log(f"[exact] prompt {n:3d}: generate == generate_fused == vanilla "
-            f"({len(van) - n} tokens)")
-    if min(ak.LAUNCHES.values()) == 0:
-        fail(f"fp32 phase did not launch every kernel: {ak.LAUNCHES}")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 130)]
+    for label, tparams, e, must_launch in cases:
+        eng = EagleEngine(tparams, cfg, dparams, dcfg, e, device=dev)
+        ak.reset_launch_counts()
+        for prompt in prompts:
+            n = len(prompt)
+            van = eng.generate_vanilla(prompt, max_new_tokens=64)
+            spec = eng.generate(prompt, max_new_tokens=64)
+            fused = eng.generate_fused(prompt, max_new_tokens=64)
+            for name, out in (("generate", spec), ("generate_fused", fused)):
+                if len(out) != len(van) or not np.array_equal(out, van):
+                    bad = int(np.argmax(out[: len(van)] != van[: len(out)]))
+                    fail(f"fp32 {label}: {name} != generate_vanilla "
+                         f"(prompt {n}, index {bad})")
+            log(f"[exact] {label}, prompt {n:3d}: generate == generate_fused == "
+                f"vanilla ({len(van) - n} tokens)")
+        idle = [k for k in must_launch if ak.LAUNCHES[k] == 0]
+        if idle:
+            fail(f"fp32 {label}: kernels never launched: {idle} ({ak.LAUNCHES})")
+        log(f"[exact] {label}: launches {dict(ak.LAUNCHES)}")
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def main_path(dev) -> tuple[dict, dict]:
+def expected_launches(eng, requests: int, rounds: int) -> dict:
+    """Launch counts of a speculative run, from its own numbers: `requests`
+    prefills (one target forward and one draft round each) and `rounds`
+    rounds (one verify forward and one draft round each)."""
+    L, depth = eng.cfg.num_layers, eng.ecfg.depth
+    exp = {k: 0 for k in ak.LAUNCHES}
+    exp["tree_attention"] = L * rounds
+    exp["compact_rows"] = rounds
+    if "stacked4" in eng.params:
+        forwards, draft_rounds = requests + rounds, requests + rounds
+        exp["qdense4_stacked"] = len(eng.params["stacked4"]) * L * forwards
+        # lm_head once per target forward; a draft round is one extension
+        # forward (fc, wqkv, wo, wgu, w_down) and `depth` beam forwards (no fc)
+        exp["qdense4"] = forwards + (5 + 4 * depth) * draft_rounds
+        exp["score_topk_quant"] = (depth + 1) * draft_rounds
+    return exp
+
+
+def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict]:
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    eng = full_width.engine(dev)
+    eng = build(dev)
     cfg = eng.cfg
     torch.cuda.synchronize()
-    log(f"[main] random bf16 weights on the card in {time.time() - t0:.1f} s; "
+    log(f"[{label}] random weights on the card in {time.time() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (24, 311, 977)]
+    all_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (24, 311, 977)]
+    prompts = [p for p in all_prompts if len(p) in prompt_lens]
     new = 128
     eng.generate_fused(prompts[0][:8], max_new_tokens=16)     # warm-up
     eng.generate_vanilla(prompts[0][:8], max_new_tokens=4)
     torch.cuda.synchronize()
 
-    # three requests through the speculative main path
+    # the requests through the speculative main path
     ak.reset_launch_counts()
     t0 = time.time()
     outs, committed, rounds = [], 0, 0
@@ -297,41 +553,63 @@ def main_path(dev) -> tuple[dict, dict]:
     launches = dict(ak.LAUNCHES)
     for p, out in zip(prompts, outs):
         if len(out) != len(p) + new or not np.array_equal(out[: len(p)], p):
-            fail(f"request of {len(p)} tokens returned {len(out)} tokens")
-    if launches["tree_attention"] != cfg.num_layers * rounds:
-        fail(f"tree_attention launched {launches['tree_attention']} times, "
-             f"expected {cfg.num_layers} x {rounds} verify forwards")
-    if launches["compact_rows"] != rounds:
-        fail(f"compact_rows launched {launches['compact_rows']} times for {rounds} rounds")
+            fail(f"[{label}] request of {len(p)} tokens returned {len(out)} tokens")
+        if out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"[{label}] tokens outside the vocabulary")
+    exp = expected_launches(eng, len(prompts), rounds)
+    if launches != exp:
+        fail(f"[{label}] launches {launches}, expected {exp} for {len(prompts)} "
+             f"requests and {rounds} rounds")
 
     # vanilla baseline on request 0, then forced replay of its trajectory
     P = eng.path_len
+    ak.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     van = eng.generate_vanilla(prompts[0], max_new_tokens=new + P + 1)
     torch.cuda.synchronize()
     van_s = time.time() - t0
+    if "stacked4" in eng.params:
+        # one prefill and one step per token (the last step's token is unused)
+        steps = 1 + new + P + 1
+        want = {"qdense4_stacked": 7 * cfg.num_layers * steps, "qdense4": steps}
+        got = {k: ak.LAUNCHES[k] for k in want}
+        if got != want:
+            fail(f"[{label}] vanilla launches {got}, expected {want}")
     ak.reset_launch_counts()
     fout, fn, frounds, live = eng.generate_fused(prompts[0], max_new_tokens=new,
                                                  log=True, force_tokens=van)
     if not np.array_equal(fout, van[: len(fout)]) or len(fout) != len(prompts[0]) + new:
-        fail("forced replay did not reproduce the vanilla trajectory")
-    if (ak.LAUNCHES["tree_attention"] != cfg.num_layers * frounds
-            or ak.LAUNCHES["compact_rows"] != frounds):
-        fail(f"forced replay launch counts {ak.LAUNCHES} for {frounds} rounds")
+        fail(f"[{label}] forced replay did not reproduce the vanilla trajectory")
+    if dict(ak.LAUNCHES) != expected_launches(eng, 1, frounds):
+        fail(f"[{label}] forced replay launches {ak.LAUNCHES} for {frounds} rounds")
+    # what a request pays before its first round: the target's forward over
+    # the padded prompt and the first draft round
+    for p in all_prompts:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng._start(p, None)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        log(f"[{label}] prefill of {len(p)} tokens (padded to {eng._bucket(len(p))}): "
+            f"{np.median(times):.1f} ms, host clock with sync, median of 3")
     Lp = len(prompts[0])
     diff = np.nonzero(outs[0][Lp:] != van[Lp: Lp + new])[0]
     stats = {
+        "path": label,
         "prompt_lens": [len(p) for p in prompts], "new_tokens_each": new,
-        "spec_tokens_per_s": 3 * new / spec_s, "spec_rounds": rounds,
+        "spec_tokens_per_s": len(prompts) * new / spec_s, "spec_rounds": rounds,
         "tau": committed / rounds,
         "vanilla_tokens_per_s": (new + P + 1) / van_s,
         "forced_replay_tau": fn / frounds,
         "forced_replay_live_agreement": live / fn,
         "first_free_running_divergence": int(diff[0]) if diff.size else None,
+        "peak_GiB_allocated": torch.cuda.max_memory_allocated() / 2**30,
         "weights": "random (seeded), lm_head x8",
     }
-    log(f"[main] {json.dumps(stats)}")
+    log(f"[{label}] {json.dumps(stats)}")
     return launches, stats
 
 
@@ -359,12 +637,23 @@ def main() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
-    kernels = [check_tree_attention(dev, flush), check_compact_rows(dev, flush)]
+    kernels = [check_tree_attention(dev, flush), check_compact_rows(dev, flush),
+               *check_w4_matmul(dev, flush), check_score_topk(dev, flush)]
     del flush
+    torch.cuda.empty_cache()
     check_exactness(dev)
-    launches, _ = main_path(dev)
+    bf16_launches, _ = main_path(dev, "bf16", full_width.engine, (24,))
+    torch.cuda.empty_cache()
+    launches, _ = main_path(dev, "int4", full_width.engine_int4, (24, 311, 977))
     for k in kernels:
+        # the int4 serving path runs all five kernels; the bf16 path two
         k["launches"] = launches[k["name"]]
+        k["launches_bf16_path"] = bf16_launches[k["name"]]
+        if k["launches"] == 0:
+            fail(f"{k['name']} was never launched on the int4 main path")
+    for name in ("tree_attention", "compact_rows"):
+        if bf16_launches[name] == 0:
+            fail(f"{name} was never launched on the bf16 main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

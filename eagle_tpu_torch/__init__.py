@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of eagle_tpu: EAGLE speculative decoding on one NVIDIA H100.
 
-Plain tensor code is PyTorch; the two TPU kernels on the greedy main path
-(tree-verify attention and accepted-branch KV compaction) are hand-written
-CUDA C++ under `csrc/`, built at first use (`ops/_build.py`). Entry points run
-on "cuda" unless the caller passes `device="cpu"`, where every kernel wrapper
-takes its plain PyTorch version.
+Plain tensor code is PyTorch; the five TPU kernels on the greedy main path
+and the int4 serving path (tree-verify attention, accepted-branch KV
+compaction, the w4a8 matmul with and without in-launch layer selection, and
+the fused draft score + top-k) are hand-written CUDA C++ under `csrc/`,
+built at first use (`ops/_build.py`). Entry points run on "cuda" unless the
+caller passes `device="cpu"`, where every kernel wrapper takes its plain
+PyTorch version.
 """
 
 import torch

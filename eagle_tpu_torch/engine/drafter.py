@@ -7,7 +7,8 @@ searchsorted, all on the device, feeding ops.tree.build_tree.
 
 Tie rule: every top-k here orders by value descending, then index ascending,
 as `jax.lax.top_k` and the JAX package's `topk_rows` do. `torch.topk` does
-not promise that, so `topk_rows` is a stable descending sort.
+not promise that, so `topk_rows` (ops/score_topk.py) is a stable descending
+sort.
 
 Draft-sequence convention: draft position i holds the token at target
 position i+1 paired with the target feature at position i.
@@ -23,23 +24,26 @@ from ..config import DraftConfig, EngineConfig
 from ..models import draft as draft_mod
 from ..ops.kv_cache import KVCache
 from ..ops.masks import place_slab, prefill_mask
+from ..ops.score_topk import score_topk_quant, topk_rows
 from ..ops.tree import Tree, build_tree
-
-
-def topk_rows(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis: values descending, ties broken by
-    ascending index (a stable sort keeps equal values in index order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def score_topk(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
                hidden: torch.Tensor, target_lm_head, k: int):
     """Log-softmax top-k (scores [M, k] fp32, draft-vocab ids [M, k]) of the
-    draft scoring head over [M, H] hidden rows (the unfused branch)."""
-    if ecfg.fuse_scoring:
-        raise NotImplementedError("fuse_scoring (the fused score+top-k kernel) "
-                                  "is not ported yet")
+    draft scoring head over [M, H] hidden rows.
+
+    With `fuse_scoring` and a quantized head the fused kernel
+    (ops/score_topk.score_topk_quant) does the matmul, the log-softmax and
+    the top-k in one call; on the CPU that wrapper takes its plain version.
+    Candidate ids are the same either way; scores differ by the order of
+    the logsumexp sum, which never affects greedy == vanilla (acceptance
+    only commits tokens the target verifies)."""
+    w = target_lm_head if dcfg.version == 1 else dparams["lm_head"]
+    if ecfg.fuse_scoring and isinstance(w, dict):
+        h = (hidden if dcfg.version == 1
+             else draft_mod.rms_norm(hidden, dparams["norm"], dcfg.rms_eps))
+        return score_topk_quant(h, w, k)
     logits = draft_mod.draft_logits(dparams, dcfg, hidden, target_lm_head)
     return topk_rows(torch.log_softmax(logits, dim=-1), k)
 

@@ -1,6 +1,6 @@
 """EagleEngine — greedy speculative decoding, B = 1, on one device.
 
-Port of eagle_tpu/engine/engine.py for the slice's main path: `_prefill`,
+Port of eagle_tpu/engine/engine.py for the greedy main path: `_prefill`,
 `_round` (tree verify → accept_greedy → KV compaction → next draft tree),
 `generate`, `generate_fused`, and the vanilla baseline. The JAX engine jits
 each round into one XLA program; here PyTorch runs eagerly and a round keeps
@@ -8,10 +8,15 @@ every offset on the device, so it never waits on the host.
 `generate_fused` is a host loop whose only per-round sync reads one stop
 flag (`done` or budget reached).
 
-Options this slice does not port raise NotImplementedError: temperature > 0,
-kv_quant, draft_quant, quantized targets, kv_buckets, tree_paths (static
-trees), fuse_scoring, batched generation, sp_mesh, MoE and sliding-window
-targets.
+Ported operating points: bf16/fp32, int8 and int4 targets (params from
+ops/quant.quantize_target_params / ops/quant4.quantize_target_params4),
+`draft_quant` "int8" / "int4", and `fuse_scoring` (the fused score+top-k
+kernel in the drafter's beam loop). A quantized draft never changes the
+output; a quantized target is bit-exact against its own vanilla decode.
+
+Options not ported yet raise NotImplementedError: temperature > 0,
+kv_quant, kv_buckets, tree_paths (static trees), batched generation,
+sp_mesh, MoE and sliding-window targets.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from ..ops.attn_kernels import compact_rows
 from ..ops.kv_cache import (KVCache, compact_accepted, init_cache, window,
                             with_length)
 from ..ops.masks import TreeMaskSpec, prefill_mask
+from ..ops.quant import quantize_draft_params
+from ..ops.quant4 import quantize_draft_params4
 from ..ops.tree import Tree
 from . import accept as accept_mod
 from .drafter import draft_round
@@ -77,27 +84,33 @@ class EagleEngine:
                                       "is not ported yet")
         if ecfg.kv_quant != "none":
             raise NotImplementedError(f"kv_quant={ecfg.kv_quant!r} is not ported yet")
-        if ecfg.draft_quant != "none":
-            raise NotImplementedError(f"draft_quant={ecfg.draft_quant!r} is not ported yet")
+        if ecfg.draft_quant not in ("none", "int8", "int4"):
+            # a typo here would silently serve the unquantized draft while
+            # reporting a quantized operating point
+            raise ValueError(f"unknown draft_quant {ecfg.draft_quant!r} "
+                             "(expected 'none' | 'int8' | 'int4')")
         if ecfg.kv_buckets:
             raise NotImplementedError("kv_buckets is not ported yet")
         if ecfg.tree_paths is not None:
             raise NotImplementedError("static trees (tree_paths) are not ported yet")
-        if ecfg.fuse_scoring:
-            raise NotImplementedError("fuse_scoring is not ported yet")
         if ecfg.acceptance not in ("q1", "true_q", "true_q_dynamic"):
             raise ValueError(f"unknown acceptance {ecfg.acceptance!r} "
                              "(expected 'q1' | 'true_q' | 'true_q_dynamic')")
         if sp_mesh is not None:
             raise NotImplementedError("sequence-parallel prefill (sp_mesh) is "
                                       "not ported yet")
-        transformer.check_dense(params)   # quantized targets are not ported
         transformer.check_supported(cfg)
         self.params, self.cfg = _to_device(params, self.device), cfg
         self.eos_token_id = eos_token_id
         dparams = _to_device(dparams, self.device)
         if ecfg.fuse_draft:
+            # concat q|k|v and gate|up before (possible) quantization: the
+            # beam loop then streams one tensor per group of projections
             dparams = draft_mod.fuse_projections(dparams)
+        if ecfg.draft_quant == "int8":
+            dparams = quantize_draft_params(dparams)
+        elif ecfg.draft_quant == "int4":
+            dparams = quantize_draft_params4(dparams, group=ecfg.draft_quant_group)
         self.dparams, self.dcfg, self.ecfg = dparams, dcfg, ecfg
         self.path_len = ecfg.depth + 2
         # rows that must stay free past the committed context for one round:
@@ -107,6 +120,8 @@ class EagleEngine:
         # engines' capacity stops (and so their output lengths) the same.
         self._tail = (max(self.path_len + 1, 16) if ecfg.compact_impl == "pallas"
                       else self.path_len + 1)
+        # a v1 draft scores with the target's lm_head, which may be a
+        # quantized dict
         if dcfg.version == 1:
             self._lm_head_w = (self.params["embed"]["w"].t() if cfg.tie_embeddings
                                else self.params["lm_head"])

@@ -1,6 +1,8 @@
-"""The slice's full-width configuration: a Llama-3.1-8B-Instruct-shaped bf16
-target with the EAGLE-3 LLaMA3.1-8B draft head, random weights made on the
-device from seeds (no checkpoints are in the repository).
+"""The port's full-width configuration: a Llama-3.1-8B-Instruct-shaped target
+with the EAGLE-3 LLaMA3.1-8B draft head, random weights made on the device
+from seeds (no checkpoints are in the repository). `engine` is the bf16
+path; `engine_int4` the int4 serving path (w4a8 target, int4 draft, fused
+draft scoring) over the same random weights.
 
 Widths come from configs/llama3_8B_target.json (the public
 Llama-3.1-8B-Instruct config.json values) and configs/llama3_8B_eagle3_config.json.
@@ -11,12 +13,15 @@ margins, and the draft shares the target's embedding, as EAGLE-3 does.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 
 from .config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig
 from .engine.engine import EagleEngine
 from .models import draft as draft_mod
 from .models import transformer
+from .ops.quant import _QUANT_KEYS
+from .ops.quant4 import GROUP, pack_w4, stack_layer
 
 LM_HEAD_SHARPEN = 8.0
 SEED = 0
@@ -37,6 +42,43 @@ def engine(device=None) -> EagleEngine:
                         compact_impl="pallas")
     params = transformer.init_params(cfg, seed=SEED, device=device)
     params["lm_head"].mul_(LM_HEAD_SHARPEN)
+    dparams = draft_mod.init_params(dcfg, seed=SEED + 1, device=device)
+    dparams["embed"]["w"] = params["embed"]["w"]
+    return EagleEngine(params, cfg, dparams, dcfg, ecfg, device=device)
+
+
+def int4_target_params(cfg: ModelConfig, device=None) -> dict:
+    """The int4 tree of `transformer.init_params(cfg, SEED)` (with its lm_head
+    times LM_HEAD_SHARPEN), the same words and scales as
+    `quantize_target_params4` of that tree gives, without ever holding the
+    float tree: each layer is packed on the device as soon as it is made, into
+    stacked [L, K/8, N] / [L, G, N] tensors allocated once."""
+    stacked: dict = {}
+    layer_ids = itertools.count()
+
+    def pack_layer(lp: dict) -> dict:
+        layer = next(layer_ids)
+        for name in _QUANT_KEYS:
+            stack_layer(stacked, name, pack_w4(lp.pop(name), GROUP), layer,
+                        cfg.num_layers)
+        return lp
+
+    params = transformer.init_params(cfg, seed=SEED, device=device,
+                                     layer_fn=pack_layer)
+    params["stacked4"] = stacked
+    params["lm_head"] = pack_w4(params["lm_head"].mul_(LM_HEAD_SHARPEN), GROUP)
+    return params
+
+
+def engine_int4(device=None) -> EagleEngine:
+    """The int4 serving path at full width: w4a8 target (seven stacked
+    launches per layer, the unfused layout), int4 draft, fused draft scoring,
+    tree-verify attention and in-place compaction kernels on."""
+    cfg, dcfg = configs()
+    ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=2048,
+                        compact_impl="pallas", draft_quant="int4",
+                        fuse_scoring=True)
+    params = int4_target_params(cfg, device=device)
     dparams = draft_mod.init_params(dcfg, seed=SEED + 1, device=device)
     dparams["embed"]["w"] = params["embed"]["w"]
     return EagleEngine(params, cfg, dparams, dcfg, ecfg, device=device)

@@ -11,7 +11,7 @@ as the target's and is written in place.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -19,13 +19,20 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..config import DraftConfig
 from ..ops.kv_cache import KVCache, update_layer
+from ..ops.quant4 import _k_of
 from .rope import apply_rope, rope_tables
 from .transformer import _dense, attention, matmul_f32, rms_norm
 
 
+def _quant_in_dim(w: dict) -> int:
+    """Contraction dim of a quantized leaf ({"q8"} or packed {"q4"})."""
+    return w["q8"].shape[-2] if "q8" in w else _k_of(w)
+
+
 def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     if "wgu" in lp:  # fused gate|up (fuse_projections)
-        Fi = lp["w_down"].shape[-2]
+        wd = lp["w_down"]
+        Fi = _quant_in_dim(wd) if isinstance(wd, dict) else wd.shape[-2]
         gu = _dense(h, lp["wgu"])
         gate, up = gu[..., :Fi], gu[..., Fi:]
     else:
@@ -54,11 +61,12 @@ def _attn_block(x, lp, cfg: DraftConfig, k_cache, v_cache, cos, sin, mask, start
 
 def fuse_projections(dparams: dict) -> dict:
     """Concatenate each layer's q/k/v (and gate/up) weights along the output
-    axis: wqkv [in, q_dim + 2*kv_dim], wgu [H, 2F]. Idempotent."""
+    axis: wqkv [in, q_dim + 2*kv_dim], wgu [H, 2F]. Idempotent; layers that
+    are already fused or quantized are left as they are."""
     out = dict(dparams)
     layers = []
     for lp in dparams["layers"]:
-        if "wqkv" in lp:
+        if "wqkv" in lp or isinstance(lp.get("wq"), dict):
             layers.append(lp)
             continue
         nlp = dict(lp)
@@ -69,7 +77,8 @@ def fuse_projections(dparams: dict) -> dict:
         elif n_bias:
             raise ValueError("fuse_projections: layer has a partial q/k/v bias set "
                              f"({n_bias}/3)")
-        nlp["wgu"] = torch.cat([nlp.pop("w_gate"), nlp.pop("w_up")], dim=-1)
+        if not isinstance(nlp.get("w_gate"), dict):
+            nlp["wgu"] = torch.cat([nlp.pop("w_gate"), nlp.pop("w_up")], dim=-1)
         layers.append(nlp)
     out["layers"] = layers
     return out
@@ -119,14 +128,19 @@ def forward(params: dict, cfg: DraftConfig, tokens: torch.Tensor,
 
 
 def draft_logits(params: dict, cfg: DraftConfig, hidden: torch.Tensor,
-                 target_lm_head: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 target_lm_head=None) -> torch.Tensor:
     """Draft scoring head → fp32 logits over the draft vocab (v1: the
-    target's lm_head on the raw hidden; v3: own lm_head over norm(h))."""
+    target's lm_head on the raw hidden; v3: own lm_head over norm(h)). A
+    quantized head (a dict) gives its result in the hidden dtype, then fp32."""
     if cfg.version == 1:
         if target_lm_head is None:
             raise ValueError("an EAGLE-1 draft scores with the target's lm_head")
-        return matmul_f32(hidden, target_lm_head)
-    return matmul_f32(rms_norm(hidden, params["norm"], cfg.rms_eps), params["lm_head"])
+        w, h = target_lm_head, hidden
+    else:
+        w, h = params["lm_head"], rms_norm(hidden, params["norm"], cfg.rms_eps)
+    if isinstance(w, dict):
+        return _dense(h, w).to(torch.float32)
+    return matmul_f32(h, w)
 
 
 def map_draft_to_target(params: dict, cfg: DraftConfig, draft_ids: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Target-model transformer (Llama; Qwen2 qkv bias and Qwen3 qk_norm flags).
 
-Port of eagle_tpu/models/transformer.py for the bf16/fp32 dense path. Params
-are a plain dict whose "layers" entry is a list of per-layer dicts (the JAX
-package stacks them on a leading axis for `lax.scan`; here a Python loop
-walks the list). Weights keep the JAX layout [in, out], so `x @ w`.
-Attention scores and softmax run in fp32; matmuls accumulate in fp32 and
-cast to the activation dtype.
+Port of eagle_tpu/models/transformer.py for dense targets in bf16/fp32,
+int8 ({"q8", "scale"} leaves, ops/quant.py) and int4 ({"q4", "scale"}
+leaves, ops/quant4.py). Params are a plain dict whose "layers" entry is a
+list of per-layer dicts (the JAX package stacks them on a leading axis for
+`lax.scan`; here a Python loop walks the list). Stacked int4 weights stay
+whole under params["stacked4"] ({name: {"q4": [L, K/8, N], "scale":
+[L, G, N]}}) and each layer gets a `Stacked4(q4, scale, layer)`, so the
+kernel reads its layer in place. Weights keep the JAX layout [in, out], so
+`x @ w`. Attention scores and softmax run in fp32; matmuls accumulate in
+fp32 and cast to the activation dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from ..config import ModelConfig
 from ..ops.attn_kernels import tree_attention
 from ..ops.kv_cache import KVCache, update_layer
 from ..ops.masks import TreeMaskSpec, tree_mask_full
+from ..ops.quant import qdense
+from ..ops.quant4 import Stacked4, qdense4, qdense4_stacked
 from .rope import apply_rope, rope_tables
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -35,7 +41,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _dense(x: torch.Tensor, w, b=None) -> torch.Tensor:
-    """x @ w for bf16/fp32 weights: fp32 accumulation, result in x.dtype."""
+    """x @ w, result in x.dtype: a stacked int4 weight with its layer, a
+    packed int4 or int8 dict, or a bf16/fp32 tensor (fp32 accumulation)."""
+    if isinstance(w, Stacked4):
+        return qdense4_stacked(x, w, b)
+    if isinstance(w, dict):
+        return qdense4(x, w, b) if "q4" in w else qdense(x, w, b)
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
@@ -79,8 +90,13 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def _mlp_dense(h: torch.Tensor, lp: dict) -> torch.Tensor:
-    gate = _dense(h, lp["w_gate"])
-    up = _dense(h, lp["w_up"])
+    if "w_gateup" in lp:   # fused gate|up (quantize_target_params4 fuse=True)
+        gu = _dense(h, lp["w_gateup"])
+        Fi = gu.shape[-1] // 2
+        gate, up = gu[..., :Fi], gu[..., Fi:]
+    else:
+        gate = _dense(h, lp["w_gate"])
+        up = _dense(h, lp["w_up"])
     return _dense(F.silu(gate) * up, lp["w_down"])
 
 
@@ -89,9 +105,18 @@ def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start):
     returns the new hidden states."""
     B, T, _ = h.shape
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
-    q = _dense(x, lp["wq"], lp.get("bq")).reshape(B, T, cfg.num_q_heads, cfg.head_dim)
-    k = _dense(x, lp["wk"], lp.get("bk")).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = _dense(x, lp["wv"], lp.get("bv")).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if "wqkv" in lp:   # fused q|k|v (quantize_target_params4 fuse=True)
+        qkv = _dense(x, lp["wqkv"], lp.get("bqkv"))
+        q = qkv[..., : cfg.q_dim]
+        k = qkv[..., cfg.q_dim: cfg.q_dim + cfg.kv_dim]
+        v = qkv[..., cfg.q_dim + cfg.kv_dim:]
+    else:
+        q = _dense(x, lp["wq"], lp.get("bq"))
+        k = _dense(x, lp["wk"], lp.get("bk"))
+        v = _dense(x, lp["wv"], lp.get("bv"))
+    q = q.reshape(B, T, cfg.num_q_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
@@ -124,19 +149,6 @@ class ForwardResult(NamedTuple):
     cache: KVCache
 
 
-def check_dense(params) -> None:
-    """Raise on quantized leaves ({"q8"} / {"q4"} dicts): only bf16/fp32
-    weights are ported."""
-    if isinstance(params, dict):
-        if "q4" in params or "q8" in params:
-            raise NotImplementedError("quantized weights are not ported yet")
-        for v in params.values():
-            check_dense(v)
-    elif isinstance(params, (list, tuple)):
-        for v in params:
-            check_dense(v)
-
-
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE targets are not ported yet")
@@ -157,7 +169,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
     cos, sin = rope_tables(cfg.rope, cfg.head_dim, positions)
     start = cache.length
     taps = [torch.zeros_like(h) for _ in range(3)]
+    stacked4 = params.get("stacked4", {})
     for i, lp in enumerate(params["layers"]):
+        if stacked4:
+            lp = dict(lp)
+            for name, qw in stacked4.items():
+                lp[name] = Stacked4(qw["q4"], qw["scale"], i)
         for slot, tap in enumerate(cfg.tap_layers):
             if tap == i:
                 taps[slot] = h
@@ -171,6 +188,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
 def lm_head(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """hidden [.., H] → fp32 logits [.., V]."""
     w = params["embed"]["w"].t() if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(w, dict):   # quantized target (ops/quant.py, ops/quant4.py)
+        dense = qdense4 if "q4" in w else qdense
+        return dense(hidden, w, out_dtype=torch.float32)
     return matmul_f32(hidden, w)
 
 
@@ -178,10 +198,12 @@ def lm_head(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tenso
 # Initialization (random params from a seed)
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None,
+                layer_fn=None) -> dict:
     """Random params (normal * 0.02, unit norms), generated on `device`
     ("cuda" unless the caller passes "cpu") from an explicit torch.Generator
-    seeded with `seed`."""
+    seeded with `seed`. `layer_fn` (optional) maps each layer's dict as soon
+    as it is made."""
     check_supported(cfg)
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
@@ -196,8 +218,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None) -> dic
     def ones(*shape):
         return torch.ones(shape, device=dev, dtype=dtype)
 
-    layers = []
-    for _ in range(cfg.num_layers):
+    def layer() -> dict:
         lp = {"ln1": ones(H), "ln2": ones(H),
               "wq": rnd(H, cfg.q_dim), "wk": rnd(H, cfg.kv_dim),
               "wv": rnd(H, cfg.kv_dim), "wo": rnd(cfg.q_dim, H),
@@ -209,7 +230,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None) -> dic
         if cfg.qk_norm:
             lp["q_norm"] = ones(cfg.head_dim)
             lp["k_norm"] = ones(cfg.head_dim)
-        layers.append(lp)
+        return lp
+
+    # each layer goes through `layer_fn` as soon as it is made (an int4
+    # target packs it and drops the float weights), then the embedding and
+    # the head are drawn: the same random stream whatever `layer_fn` does
+    layers = [layer_fn(layer()) if layer_fn else layer()
+              for _ in range(cfg.num_layers)]
     params = {"embed": {"w": rnd(cfg.vocab_size, H)}, "layers": layers,
               "final_norm": ones(H)}
     if not cfg.tie_embeddings:

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library for `sm_90a`, loaded with `ctypes`. Libraries go
-to `eagle_tpu_torch/_build/` (git-ignored), named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
-`build()` starts one `nvcc` per missing library, all at once.
+to `eagle_tpu_torch/_build/` (git-ignored), named by a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source is
+rebuilt and an unchanged one is reused. `build()` starts one `nvcc` per
+missing library, all at once.
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("tree_attention", "compact_rows")
+SOURCES = ("tree_attention", "compact_rows", "w4_matmul", "score_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the w4a8 sources promise one rounded multiply and one rounded add per scale
+# group, so nvcc must not contract them into fused multiply-adds
+EXTRA_FLAGS = {"w4_matmul": ("-fmad=false",), "score_topk": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -41,11 +45,18 @@ def nvcc_path() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha1(" ".join(_flags(name)).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(names=SOURCES) -> None:
@@ -58,7 +69,7 @@ def build(names=SOURCES) -> None:
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc_path(), *_flags(name), "-o", tmp, src]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

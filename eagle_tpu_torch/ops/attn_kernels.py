@@ -1,4 +1,5 @@
-"""The main path's two CUDA kernels, with their plain PyTorch versions.
+"""The attention-side CUDA kernels (two of the port's five), with their plain
+PyTorch versions.
 
 - `tree_attention` (csrc/tree_attention.cu) replaces the Pallas kernel
   eagle_tpu/ops/pallas_attn.py:_tree_attn_kernel; its plain version is
@@ -7,9 +8,13 @@
   pallas_attn.py:_compact_kernel; its plain version is
   ops/kv_cache.compact_accepted (`compact_rows_plain`).
 
+The w4a8 matmul kernels live in ops/quant4.py and the fused score+top-k
+kernel in ops/score_topk.py.
+
 Each wrapper takes its plain version only for CPU tensors. A CUDA tensor goes
-to the kernel, or the wrapper raises. `LAUNCHES` counts kernel launches per
-wrapper (a plain integer each), so a run can show the path went through them.
+to the kernel, or the wrapper raises. `LAUNCHES` (ops/_launch.py, shared by
+all five wrappers) counts kernel launches per wrapper, a plain integer each,
+so a run can show the path went through them.
 """
 
 from __future__ import annotations
@@ -18,45 +23,17 @@ import ctypes
 
 import torch
 
-from . import _build
+from ._launch import (LAUNCHES, check_launch as _check_launch,
+                      entry_point as _lib, require_cuda as _require_cuda,
+                      reset_launch_counts, stream as _stream)
 from .kv_cache import compact_rows_plain
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "tree_attention",
+           "tree_attention_ref", "compact_rows"]
 
 NEG_INF = -1e30
 
-LAUNCHES = {"tree_attention": 0, "compact_rows": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _lib(name: str, argtypes) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, name + "_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
-def _require_cuda(name: str, t: torch.Tensor) -> None:
-    """Tensors off the CPU go to the kernel: they must be CUDA tensors."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"{t.device} (CPU tensors take the plain version)")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def _device_int32(x, device) -> torch.Tensor:

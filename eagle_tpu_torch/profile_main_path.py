@@ -1,9 +1,10 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
-    python -m eagle_tpu_torch.profile_main_path [--out DIR]
+    python -m eagle_tpu_torch.profile_main_path [--quant int4] [--out DIR]
 
-Builds the full-width engine (eagle_tpu_torch/full_width.py), prefills a
-prompt of CONTEXT = 1000 tokens, then:
+Builds the full-width engine (eagle_tpu_torch/full_width.py: the bf16 path,
+or with `--quant int4` the int4 serving path: w4a8 target, int4 draft, fused
+draft scoring), prefills a prompt of CONTEXT = 1000 tokens, then:
   - times vanilla decode steps and speculative rounds on the host clock, each
     ending in torch.cuda.synchronize();
   - profiles ROUNDS = 12 speculative rounds with torch.profiler (CPU + CUDA):
@@ -12,7 +13,7 @@ prompt of CONTEXT = 1000 tokens, then:
     the host), kernel launches per round, the four round steps
     (round.verify / accept / commit / draft spans, host and device ms) and
     the kernels by device time.
-Writes the profiler tables to DIR/profile_main_path.txt (default
+Writes the profiler tables to DIR/profile_main_path[_int4].txt (default
 profile_out/) and prints one JSON line of results. Needs CUDA.
 """
 
@@ -48,6 +49,7 @@ def _dev_self(evt) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--quant", choices=("none", "int4"), default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
@@ -56,7 +58,7 @@ def main() -> None:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    eng = full_width.engine(dev)
+    eng = (full_width.engine_int4 if args.quant == "int4" else full_width.engine)(dev)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, eng.cfg.vocab_size, CONTEXT)
 
@@ -113,10 +115,11 @@ def main() -> None:
                 s["host_ms_per_round"] += e.cpu_time_total / 1e3 / n
     launches = [e for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                              "cuLaunchKernelEx")]
-    top = sorted(kernels, key=_dev_self, reverse=True)[:12]
+    top = sorted(kernels, key=_dev_self, reverse=True)[:14]
     round_med = float(np.median(round_ms))
     result = {
-        "card": smi.stdout.strip(), "context": CONTEXT, "rounds": n,
+        "card": smi.stdout.strip(), "quant": args.quant, "context": CONTEXT,
+        "rounds": n,
         "round_ms_median": round_med,
         "vanilla_step_ms_median": float(np.median(step_ms)),
         "profiled_window_ms_per_round": window_ms / n,
@@ -127,11 +130,11 @@ def main() -> None:
         "spans": spans,
         "top_kernels_ms_per_round": {e.key[:80]: _dev_self(e) / 1e3 / n
                                      for e in top},
-        "tree_attention_launches_per_round": ak.LAUNCHES["tree_attention"] / n,
-        "compact_rows_launches_per_round": ak.LAUNCHES["compact_rows"] / n,
+        "launches_per_round": {k: v / n for k, v in ak.LAUNCHES.items()},
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_main_path.txt"), "w") as f:
+    suffix = "" if args.quant == "none" else "_" + args.quant
+    with open(os.path.join(args.out, f"profile_main_path{suffix}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n\n")
         f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))

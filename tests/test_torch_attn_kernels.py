@@ -57,7 +57,7 @@ def test_tree_attention_ref_matches_jax(T, Tk, nq, nkv, d, S, start):
     for out in (out_ref, out_wrap):
         np.testing.assert_allclose(out.numpy(), ref_xla, **TOL)
         np.testing.assert_allclose(out.numpy(), ref_pallas, **TOL)
-    assert ak.LAUNCHES == {"tree_attention": 0, "compact_rows": 0}
+    assert ak.LAUNCHES["tree_attention"] == 0 and ak.LAUNCHES["compact_rows"] == 0
 
 
 @pytest.mark.parametrize("start,path,alen", [
@@ -108,7 +108,7 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         ak.compact_rows(m(2, 1, 1, 16, 8), m(2, 1, 1, 16, 8),
                         torch.zeros(3, dtype=torch.long, device="meta"), 2)
-    assert ak.LAUNCHES == {"tree_attention": 0, "compact_rows": 0}
+    assert ak.LAUNCHES["tree_attention"] == 0 and ak.LAUNCHES["compact_rows"] == 0
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -128,8 +128,12 @@ def test_cuda_sources_present_and_named():
     """Every CUDA source of the build is in the package and exposes the
     C entry point its wrapper binds."""
     import os
+    assert _build.SOURCES == ("tree_attention", "compact_rows", "w4_matmul",
+                              "score_topk")
     for name in _build.SOURCES:
         path = os.path.join(_build.CSRC_DIR, name + ".cu")
         src = open(path).read()
         assert f'extern "C" int {name}_launch(' in src
-        assert "Replaces: eagle_tpu/ops/pallas_attn.py" in src
+        assert "Replaces: eagle_tpu/ops/" in src
+    assert 'extern "C" int w4_matmul_stacked_launch(' in open(
+        os.path.join(_build.CSRC_DIR, "w4_matmul.cu")).read()

@@ -7,7 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from eagle_tpu_torch.ops import _launch
 from eagle_tpu_torch.ops import attn_kernels as ak
+from eagle_tpu_torch.ops import quant as tq
+from eagle_tpu_torch.ops import quant4 as tq4
+from eagle_tpu_torch.ops import score_topk as stk
 from eagle_tpu_torch.ops.kv_cache import compact_rows_plain
 from eagle_tpu_torch.ops.tree import ancestor_mask
 
@@ -58,3 +62,111 @@ def test_compact_rows_kernel(dev):
     ak.compact_rows(k, v, path, st)
     compact_rows_plain(k2, v2, path, st)
     assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+# ---------------------------------------------------------------------------
+# B3 / B4: w4a8 matmul, bit-identical to qdense4_ref
+# ---------------------------------------------------------------------------
+
+def _w4_case(dev, M, K, N, seed, blocks=1, group=128, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.05
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return x, tq4.pack_w4(w, group, blocks)
+
+
+@pytest.mark.parametrize("M,K,N,blocks,group,dtype", [
+    (1, 4096, 4096, 1, 128, torch.bfloat16), (10, 8192, 6144, 1, 128, torch.bfloat16),
+    (61, 4096, 1024, 1, 128, torch.float32), (5, 512, 100, 1, 128, torch.float32),
+    (7, 64, 40, 1, 16, torch.float32), (3, 32, 9, 1, 128, torch.float32),
+    (9, 1024, 96, 2, 128, torch.float32), (33, 512, 72, 4, 128, torch.float32),
+    (2, 256, 64, 1, 128, torch.float32), (300, 256, 384, 1, 128, torch.bfloat16)])
+def test_qdense4_kernel_bit_identical(dev, M, K, N, blocks, group, dtype):
+    x, qw = _w4_case(dev, M, K, N, M + K, blocks, group, dtype)
+    b = torch.randn(N, device=dev)
+    before = _launch.LAUNCHES["qdense4"]
+    got = tq4.qdense4(x, qw, b)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["qdense4"] == before + 1
+    assert torch.equal(got, tq4.qdense4_ref(x, qw, b))          # tolerance: none
+    got32 = tq4.qdense4(x, qw, out_dtype=torch.float32)
+    assert torch.equal(got32, tq4.qdense4_ref(x, qw, out_dtype=torch.float32))
+    # a row's bits do not depend on how many rows go with it
+    i = M // 2
+    assert torch.equal(tq4.qdense4(x[i:i + 1], qw, out_dtype=torch.float32), got32[i:i + 1])
+
+
+def test_qdense4_stacked_kernel_bit_identical(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    L, K, N = 3, 4096, 1024
+    st = tq4.pack_w4(torch.randn((L, K, N), generator=g, device=dev) * 0.05)
+    x = torch.randn((61, K), generator=g, device=dev).to(torch.bfloat16)
+    for layer in range(L):
+        w = tq4.Stacked4(st["q4"], st["scale"], layer)
+        before = _launch.LAUNCHES["qdense4_stacked"]
+        got = tq4.qdense4_stacked(x, w)
+        assert _launch.LAUNCHES["qdense4_stacked"] == before + 1
+        assert torch.equal(got, tq4.qdense4_stacked_ref(x, w))
+        one = tq4.qdense4_stacked(x[7:8], w)
+        assert torch.equal(one, got[7:8])
+    with pytest.raises(IndexError):
+        tq4.qdense4_stacked(x, tq4.Stacked4(st["q4"], st["scale"], L))
+
+
+def test_pack_w4_same_words_on_the_card_and_the_cpu(dev):
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn((2, 512, 136), generator=g) * 0.1
+    for blocks in (1, 2):
+        a, b = tq4.pack_w4(w, blocks=blocks), tq4.pack_w4(w.to(dev), blocks=blocks)
+        assert torch.equal(a["q4"], b["q4"].cpu()) and torch.equal(a["scale"], b["scale"].cpu())
+
+
+# ---------------------------------------------------------------------------
+# B5: fused score + top-k. ids identical; scores within stk.SCORE_TOL (the
+# logsumexp is summed per tile, then over tiles)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+@pytest.mark.parametrize("M,K,V,k,dtype", [
+    (10, 4096, 32000, 10, torch.bfloat16), (1, 4096, 32000, 10, torch.float32),
+    (32, 256, 448, 16, torch.float32), (7, 128, 70, 5, torch.bfloat16),
+    (3, 64, 9, 4, torch.float32)])
+def test_score_topk_kernel(dev, kind, M, K, V, k, dtype):
+    g = torch.Generator(device=dev).manual_seed(V + M)
+    h = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w = torch.randn((K, V), generator=g, device=dev) * 0.05
+    qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+    before = _launch.LAUNCHES["score_topk_quant"]
+    lp, ids = stk.score_topk_quant(h, qw, k)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["score_topk_quant"] == before + 1
+    ref_lp, ref_ids = stk.score_topk_ref(h, qw, k)
+    assert torch.equal(ids, ref_ids)
+    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+def test_score_topk_kernel_forced_ties(dev, kind):
+    """Equal logits in far-apart tiles resolve by ascending index."""
+    M, K, V, k = 2, 256, 1000, 6
+    h = torch.ones((M, K), device=dev)
+    w = torch.zeros((K, V), device=dev)
+    for c in (900, 7, 450, 64, 63):
+        w[:, c] = 0.5
+    w[:, 300] = 0.25
+    qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+    _, ids = stk.score_topk_quant(h, qw, k)
+    _, ref_ids = stk.score_topk_ref(h, qw, k)
+    assert torch.equal(ids, ref_ids)
+    assert ids[0].tolist() == [7, 63, 64, 450, 900, 300]
+
+
+def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):
+    """x / 127 is a true division on both devices (ops/quant.true_div)."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((64, 4096), generator=g)
+    (xq, sx), (cq, cs) = tq.quantize_rows(x), tq.quantize_rows(x.to(dev))
+    assert torch.equal(xq, cq.cpu()) and torch.equal(sx, cs.cpu())

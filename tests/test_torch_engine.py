@@ -102,13 +102,18 @@ def test_port_capacity_stop_matches_jax():
     np.testing.assert_array_equal(out, jout)
 
 
-@pytest.mark.parametrize("change", [
-    dict(temperature=0.7), dict(kv_quant="int8"), dict(draft_quant="int8"),
-    dict(kv_buckets=(128,)), dict(tree_paths=((0,), (1,))),
-    dict(fuse_scoring=True)])
-def test_unported_engine_options_raise(change):
+@pytest.mark.parametrize("change,error", [
+    (dict(temperature=0.7), NotImplementedError),
+    (dict(kv_quant="int8"), NotImplementedError),
+    (dict(draft_quant="int7"), ValueError),
+    (dict(kv_buckets=(128,)), NotImplementedError),
+    (dict(tree_paths=((0,), (1,))), NotImplementedError),
+    (dict(acceptance="bogus"), ValueError)])
+def test_unported_engine_options_raise(change, error):
+    """Options not ported yet raise NotImplementedError; an unknown value of a
+    ported option (draft_quant, acceptance) raises ValueError as in JAX."""
     je = make_engine(1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         port_engine(je, **change)
 
 
@@ -125,7 +130,7 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError):
         EagleEngine(pe.params, pe.cfg, pe.dparams, pe.dcfg, EngineConfig(),
                     sp_mesh=object(), device="cpu")
-    quantized = dict(pe.params, lm_head={"q8": None, "scale": None})
+    moe = dataclasses.replace(pe.cfg, num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError):
-        EagleEngine(quantized, pe.cfg, pe.dparams, pe.dcfg, EngineConfig(),
+        EagleEngine(pe.params, moe, pe.dparams, pe.dcfg, EngineConfig(),
                     device="cpu")

@@ -31,10 +31,12 @@ PKG = os.path.dirname(os.path.abspath(eagle_tpu_torch.__file__))
 FORBIDDEN = {"jax", "jaxlib", "eagle_tpu"}
 
 
-def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+def _port_sources(suffixes=(".py",)):
+    files = [os.path.join(ROOT, "chip_smoke.py")] if ".py" in suffixes else []
     for dirpath, _, names in os.walk(PKG):
-        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+        if os.path.basename(dirpath) in ("_build", "__pycache__"):
+            continue
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(suffixes)]
     return sorted(files)
 
 
@@ -53,6 +55,30 @@ def _imported_top_levels(path):
 def test_no_jax_or_eagle_tpu_imports(path):
     bad = sorted(set(_imported_top_levels(path)) & FORBIDDEN)
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_walk_covers_the_quantized_modules_and_kernels():
+    rel = {os.path.relpath(p, PKG) for p in _port_sources((".py", ".cu", ".cuh"))}
+    assert {"ops/quant.py", "ops/quant4.py", "ops/score_topk.py", "ops/_launch.py",
+            "csrc/w4_matmul.cu", "csrc/score_topk.cu", "csrc/w4_dot.cuh",
+            "csrc/tree_attention.cu", "csrc/compact_rows.cu"} <= rel
+
+
+# a kernel of the port is written by hand: no library GEMM, sort or top-k, and
+# no PyTorch header (which would also make each build take minutes)
+_NO_LIBRARY = ("cublas", "cutlass", "cub/", "cub::", "thrust", "torch/", "ATen",
+               "cudnn", "jax", "eagle_tpu/engine")
+
+
+@pytest.mark.parametrize("path", _port_sources((".cu", ".cuh")),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_cuda_sources_are_hand_written(path):
+    src = open(path).read()
+    includes = [ln for ln in src.splitlines() if ln.lstrip().startswith("#include")]
+    for ln in includes:
+        assert not any(word in ln for word in _NO_LIBRARY), ln
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+    assert not any(word in code for word in ("cublas", "cub::", "thrust::")), path
 
 
 def test_forbidden_names_are_matched_exactly():
@@ -142,6 +168,7 @@ def test_convert_keeps_bf16_bits_and_index_types():
     np.testing.assert_array_equal(tw.view(torch.int16).numpy(), w.view(np.int16))
     assert convert.to_tensor(np.arange(3, dtype=np.int32), device="cpu").dtype == torch.long
     assert convert.to_tensor(np.ones(3, bool), device="cpu").dtype == torch.bool
-    with pytest.raises(NotImplementedError):
-        convert.target_params({"lm_head": {"q8": np.zeros(2), "scale": np.ones(2)}},
-                              device="cpu")
+    # quantized leaves keep their integer types (tests/test_torch_quant.py)
+    assert convert.to_tensor(np.ones(3, np.int8), device="cpu").dtype == torch.int8
+    assert convert.to_tensor(np.arange(3, dtype=np.int32), device="cpu",
+                             keep_int=True).dtype == torch.int32
