@@ -5,21 +5,29 @@
 Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi); build the CUDA
      kernels from eagle_tpu_torch/csrc (one nvcc per source, in parallel);
-  2. hold each of the five kernels against its plain PyTorch version on the
-     card at the main paths' shapes (tree attention and compaction within a
-     stated tolerance / exactly; the w4a8 matmuls bit for bit and invariant
-     in the number of rows; the fused scorer with identical ids), and time
-     kernel / plain / library call / bound;
+  2. hold each kernel against its plain PyTorch version on the card at its
+     path's shapes (tree attention and compaction within a stated tolerance
+     / exactly, also at the static tree's T = 26 and P = 7; the w4a8 matmuls
+     bit for bit and invariant in the number of rows; the fused scorer with
+     identical ids; the nine ablation variants of the w4a8 body bit for bit
+     at the probe's shape), and time kernel / plain / library call / bound;
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
-     dense target, for an int4 target + int4 draft + fused scoring, and for
-     an int8 draft + fused scoring;
-  4. the main paths at full width (Llama-3.1-8B widths, EAGLE-3 draft,
-     seeded random weights made on the card): (a) the bf16 path answers one
-     request with generate_fused, (b) the int4 serving path (w4a8 target,
-     int4 draft, fused draft scoring) answers three; each then runs the
-     vanilla baseline and a forced replay of its trajectory, and the launch
-     counts of every kernel are checked against the run's own numbers;
+     dense target, for an int4 target + int4 draft + fused scoring, for an
+     int8 draft + fused scoring, for a static-tree engine, for kv_buckets
+     across a bucket edge and for an int8 KV cache; generate_stream ends on
+     generate_fused's ids;
+  4. the paths at full width (Llama-3.1-8B widths, EAGLE-3 draft, seeded
+     random weights made on the card): (a) the bf16 path answers one request
+     with generate_fused; (b) over the same weights, the static-tree +
+     kv_buckets engine answers one request through generate_stream and two
+     through generate_fused, the int8-KV engine answers one (and launches
+     neither attention-side kernel), and calibrate_total_tokens times the
+     target; (c) the int4 serving path (w4a8 target, int4 draft, fused draft
+     scoring) answers two requests; (d) the ablation probe runs its `all`
+     sweep with short chains. (a) and (c) then run the vanilla baseline and
+     a forced replay of its trajectory. Every path starts with the launch
+     counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}.
 
@@ -37,9 +45,9 @@ import time
 import numpy as np
 import torch
 
-from eagle_tpu_torch import full_width
+from eagle_tpu_torch import full_width, probe_w4_ablate
 from eagle_tpu_torch.config import DraftConfig, EngineConfig, ModelConfig
-from eagle_tpu_torch.engine.engine import EagleEngine
+from eagle_tpu_torch.engine.engine import EagleEngine, calibrate_total_tokens
 from eagle_tpu_torch.models import draft as draft_mod
 from eagle_tpu_torch.models import transformer
 from eagle_tpu_torch.ops import _build
@@ -47,8 +55,9 @@ from eagle_tpu_torch.ops import attn_kernels as ak
 from eagle_tpu_torch.ops import quant as tq
 from eagle_tpu_torch.ops import quant4 as tq4
 from eagle_tpu_torch.ops import score_topk as stk
+from eagle_tpu_torch.ops import w4_ablate as wab
 from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window
-from eagle_tpu_torch.ops.tree import ancestor_mask
+from eagle_tpu_torch.ops.tree import MC_SIM_7B_63, ancestor_mask, paths_to_parents
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
@@ -63,7 +72,11 @@ BF16_TOL_F32 = dict(rtol=2.0 ** -8, atol=1e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 T_TREE, NQ, NKV, HD, S_CACHE = 61, 32, 8, 128, 2176   # slice shapes (layer view)
 L_TGT, PATH = 32, [0, 3, 7, 7, 7, 7, 7]
+T_STATIC = len(MC_SIM_7B_63) + 1                      # the static tree's 26 nodes
 HOST_LEAD_CYCLES = 2_000_000     # ~1 ms of device spin ahead of each timed call
+# the kernels an engine can launch (the w4_ablate variants belong to the probe)
+ENGINE_KERNELS = ("tree_attention", "compact_rows", "qdense4", "qdense4_stacked",
+                  "score_topk_quant")
 
 
 def log(msg: str) -> None:
@@ -104,6 +117,10 @@ def rand_tree_mask(T: int, rng: np.random.Generator, dev) -> torch.Tensor:
     for i in range(1, T):
         parents[i] = rng.integers(0, i)
     return ancestor_mask(torch.from_numpy(parents).to(dev), T).contiguous()
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -165,6 +182,20 @@ def check_tree_attention(dev, flush) -> dict:
     log(f"[B1] odd shape g=1 T=13 Tk=40 max_abs_err={max_err(got, ref):.3e} "
         f"(tolerance {FP32_TOL})")
 
+    # the static-tree path's shape: T = 26 under the published topology's mask,
+    # against a row-sliced view of the cache (kv_buckets: the first 1024 rows)
+    sm = ancestor_mask(torch.from_numpy(paths_to_parents(MC_SIM_7B_63)).to(dev).long(),
+                       T_STATIC).contiguous()
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, kc, vc, kt, vt, _ = inputs(T_STATIC, T_STATIC, NQ, NKV, S_CACHE, dtype, mask=sm)
+        st = torch.tensor(700, device=dev)
+        got = ak.tree_attention(q, kc[:, :1024], vc[:, :1024], kt, vt, sm, st)
+        ref = ak.tree_attention_ref(q, kc, vc, kt, vt, sm, st)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, **tol)
+        log(f"[B1] static tree T={T_STATIC}, 1024-row view, {dtype}: max_abs_err="
+            f"{max_err(got, ref):.3e} (tolerance {tol})")
+
     # timing at the main path's shape: bf16, start = 1024
     start = 1024
     args = inputs(T_TREE, T_TREE, NQ, NKV, S_CACHE, torch.bfloat16)
@@ -220,6 +251,15 @@ def check_compact_rows(dev, flush) -> dict:
             worst = max(worst, max_err(got[..., : start + P, :], exp[..., : start + P, :]))
         log(f"[B2] start={start:5d}: identical to compact_accepted, all rows "
             "(tolerance: exact)")
+    # through a row-sliced view (kv_buckets), as the static-tree path calls it
+    st = torch.tensor(700, device=dev)
+    k1, v1, k2, v2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    ak.compact_rows(k1[:, :, :, :1024], v1[:, :, :, :1024], path, st)
+    compact_rows_plain(k2, v2, path, st)
+    torch.cuda.synchronize()
+    if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+        fail("compact_rows on a 1024-row view differs from compact_accepted")
+    log("[B2] 1024-row view, start=700: identical to compact_accepted (tolerance: exact)")
     st = torch.tensor([1000], dtype=torch.int32, device=dev)  # as the kernel reads them
     path = path.to(torch.int32)
     k1, v1 = k0.clone(), v0.clone()
@@ -251,6 +291,22 @@ def _w4_bound(M, K, N, G):
     operations against the int8 tensor-core peak."""
     nbytes = K * N // 2 + 4 * G * N + M * K + 4 * M * G + 4 * M * N
     t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / INT8_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes
+
+
+def _ablate_bound(mode, M, K, N, G):
+    """Least time for one variant of the w4a8 body, from what that variant
+    needs: `no_dots` reads the packed bytes only and adds each nibble once;
+    `one_dot*` read xq[:, :K/2] and s[0] and contract it with both planes; the
+    other modes read and do what the full body does."""
+    if mode == "no_dots":
+        nbytes, ops = K * N // 2 + 4 * M * N, K * N
+    elif mode in ("one_dot", "one_dot_bf16"):
+        nbytes = K * N // 2 + 4 * N + M * K // 2 + 4 * M * N
+        ops = 2 * (2 * M * (K // 2) * N)
+    else:
+        return _w4_bound(M, K, N, G)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes
 
 
@@ -448,6 +504,80 @@ def check_score_topk(dev, flush) -> dict:
     return res
 
 
+def check_w4_ablate(dev, flush) -> list[dict]:
+    """B6: every variant of the w4a8 body against ablate_ref, bit for bit
+    (tolerance: none; every kernel keeps its plain version's sum order), at
+    the probe's shapes [32, 4096] x [4096, 4096] and [512, 4096] x [4096, 4096],
+    group 128, at every block_n a sweep gives the mode, and at ragged and odd
+    launch shapes. One timed entry per mode."""
+    K, N, group = probe_w4_ablate.K, probe_w4_ablate.N, probe_w4_ablate.GROUP
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def case(mode, M, group=group, N=N):
+        G = K // group
+        xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=gen, device=dev)
+        rs = (8 * xq.reshape(M, G, group).sum(dim=2, dtype=torch.int32)).contiguous()
+        if mode in wab.I32_MODES:
+            p = torch.randint(-2**31, 2**31 - 1, (K // 8, N), dtype=torch.int32,
+                              generator=gen, device=dev)
+        else:
+            p = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, generator=gen,
+                              device=dev)
+        s = torch.rand((G, N), generator=gen, device=dev) * 1e-3 + 5e-4
+        return xq, rs, p, s
+
+    worst = {}
+
+    def same(mode, args, group, block_n, tag):
+        got = wab.ablate(mode, *args, group, block_n)
+        ref = wab.ablate_ref(mode, *args, group)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        worst[mode] = max(worst.get(mode, 0.0), err)
+        if not torch.equal(got, ref):
+            fail(f"[B6] {mode} {tag}: differs from ablate_ref, max abs {err:.3e} "
+                 f"(tolerance: bit-identical), mean |ref| {float(ref.abs().mean()):.3e}")
+
+    for mode in wab.MODES:
+        args = case(mode, 32)
+        for bn in (256, 1024, 1536):               # 1536 leaves a ragged last block
+            same(mode, args, group, bn, f"M=32 bn={bn}")
+        same(mode, case(mode, 5), group, 2048, "M=5 bn=2048")
+        # M = 512 at the `all` sweep's block_n and at the m512 sweep's own
+        args = case(mode, 512)
+        bns = [256] + [bn for m, _, bn in probe_w4_ablate.SWEEPS["m512"] if m == mode]
+        for bn in bns:
+            same(mode, args, group, bn, f"M=512 bn={bn}")
+        log(f"[B6] {mode:12s}: bit-identical to ablate_ref at M = 5, 32 (block_n 256, "
+            f"1024, 1536, 2048) and M = 512 (block_n {bns}) "
+            f"(tolerance: exact; max_abs_err {worst[mode]:.1e})")
+    for mode, g in (("full", 1024), ("fused_unpack", 256), ("fused_unpack", 512),
+                    ("no_unpack", 1024), ("batched_dot", 512), ("full", 4)):
+        same(mode, case(mode, 32, group=g), g, 512, f"group={g}")
+    same("fused_unpack", case("fused_unpack", 7, N=200), group, 256, "N=200")
+    log("[B6] groups of 4, 256, 512, 1024 and a ragged N = 200: bit-identical")
+
+    out = []
+    for mode in wab.MODES:
+        M = 32
+        args = case(mode, M)
+        ms = device_time_ms(lambda: wab.ablate(mode, *args, group, 256), flush=flush)
+        plain_ms = device_time_ms(lambda: wab.ablate_ref(mode, *args, group), reps=5,
+                                  flush=flush)
+        bound_ms, bound_by, nbytes = _ablate_bound(mode, M, K, N, K // group)
+        log(f"[B6] {mode:12s} [{M},{K}]x[{K},{N}] group {group} bn 256: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B)")
+        out.append({"name": f"w4_ablate.{mode}", "route": "cuda",
+                    "source": "eagle_tpu_torch/csrc/w4_ablate.cu",
+                    "replaces": "tools/probe_w4_ablate.py:37", "max_abs_err": worst[mode],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "library_note": "no one PyTorch call computes this function",
+                    "shape": f"[{M},{K}]x[{K},{N}] group {group} block_n 256"})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: greedy speculative == vanilla in fp32 with the kernels on
 # ---------------------------------------------------------------------------
@@ -474,7 +604,7 @@ def check_exactness(dev) -> None:
          ("tree_attention", "compact_rows")),
         ("int4 target, int4 draft, fused scoring",
          tq4.quantize_target_params4(params), dataclasses.replace(ecfg, **q4),
-         tuple(ak.LAUNCHES)),
+         ENGINE_KERNELS),
         ("dense target, int8 draft, fused scoring", params,
          dataclasses.replace(ecfg, **q8),
          ("tree_attention", "compact_rows", "score_topk_quant")))
@@ -498,7 +628,45 @@ def check_exactness(dev) -> None:
         idle = [k for k in must_launch if ak.LAUNCHES[k] == 0]
         if idle:
             fail(f"fp32 {label}: kernels never launched: {idle} ({ak.LAUNCHES})")
-        log(f"[exact] {label}: launches {dict(ak.LAUNCHES)}")
+        log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}")
+
+    # this slice's engine options, over the dense target (kernel options on)
+    long_prompt = rng.integers(0, cfg.vocab_size, 400)
+    base = EagleEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
+    attn = ("tree_attention", "compact_rows")
+    for label, eng, prompt_set, must_launch in (
+            ("static tree mc_sim_7b_63", base._sibling(tree_paths=MC_SIM_7B_63), prompts, attn),
+            # 400 prompt tokens + 64 new + the tree and commit window leave the
+            # 512-row bucket while decoding
+            ("kv_buckets (256, 512)", base._sibling(kv_buckets=(256, 512)),
+             [prompts[1], long_prompt], attn),
+            ("int8 KV cache", base._sibling(kv_quant="int8"), prompts, ())):
+        ak.reset_launch_counts()
+        used = set()
+        limit_of = eng._kv_limit
+        eng._kv_limit = lambda n, f=limit_of: used.add(f(n)) or f(n)
+        bucketed = eng.ecfg.kv_buckets is not None
+        for prompt in prompt_set:
+            n = len(prompt)
+            van = eng.generate_vanilla(prompt, max_new_tokens=64, fused=bucketed)
+            outs = {"generate": eng.generate(prompt, max_new_tokens=64),
+                    "generate_fused": eng.generate_fused(prompt, max_new_tokens=64)}
+            for ids, _ in eng.generate_stream(prompt, max_new_tokens=64):
+                outs["generate_stream"] = ids
+            for name, out in outs.items():
+                if len(out) != len(van) or not np.array_equal(out, van):
+                    fail(f"fp32 {label}: {name} != generate_vanilla (prompt {n})")
+            log(f"[exact] {label}, prompt {n:3d}: generate == generate_fused == "
+                f"generate_stream's last ids == vanilla ({len(van) - n} tokens)")
+        if bucketed and used != {256, 512, eng._tgt_len()}:
+            fail(f"fp32 {label}: buckets used {sorted(used)}; no bucket edge was crossed")
+        idle = [k for k in must_launch if ak.LAUNCHES[k] == 0]
+        busy = [k for k in attn if ak.LAUNCHES[k] != 0] if not must_launch else []
+        if idle or busy:
+            fail(f"fp32 {label}: launches {_nonzero(ak.LAUNCHES)}; never launched {idle}, "
+                 f"launched against an int8 cache {busy}")
+        log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}"
+            + (f", buckets used {sorted(used)}" if bucketed else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +691,7 @@ def expected_launches(eng, requests: int, rounds: int) -> dict:
     return exp
 
 
-def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict]:
+def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict, EagleEngine]:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     eng = build(dev)
@@ -534,6 +702,7 @@ def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict]:
     rng = np.random.default_rng(3)
     all_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (24, 311, 977)]
     prompts = [p for p in all_prompts if len(p) in prompt_lens]
+    all_prompts = prompts if len(prompts) > 1 else all_prompts
     new = 128
     eng.generate_fused(prompts[0][:8], max_new_tokens=16)     # warm-up
     eng.generate_vanilla(prompts[0][:8], max_new_tokens=4)
@@ -610,7 +779,139 @@ def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict]:
         "weights": "random (seeded), lm_head x8",
     }
     log(f"[{label}] {json.dumps(stats)}")
-    return launches, stats
+    return launches, stats, eng
+
+
+def _attn_launches(eng, rounds: int) -> dict:
+    exp = {k: 0 for k in ak.LAUNCHES}
+    exp["tree_attention"] = eng.cfg.num_layers * rounds
+    exp["compact_rows"] = rounds
+    return exp
+
+
+def static_path(dev, base: EagleEngine) -> dict:
+    """This slice's path at full width: the static-tree + kv_buckets engine
+    over the bf16 engine's weights answers one request through
+    generate_stream (its per-round host loop is unbucketed, as in the JAX
+    package) and two through generate_fused (bucketed). B1 launches once per
+    layer and round at T = 26, B2 once per round."""
+    eng = full_width.engine_static(dev, base=base)
+    if eng.ecfg.tree_size != T_STATIC or eng.params["lm_head"] is not base.params["lm_head"]:
+        fail("[static] engine_static must share the bf16 weights and use the 26-node tree")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n) for n in (24, 311, 977)][1:]
+    new = 128
+    eng.generate_fused(prompts[0][:8], max_new_tokens=16)     # warm-up
+    torch.cuda.synchronize()
+
+    ak.reset_launch_counts()
+    t0 = time.time()
+    rounds, ids = 0, None
+    for ids, st in eng.generate_stream(prompts[0], max_new_tokens=new):
+        rounds = st["rounds"]
+    torch.cuda.synchronize()
+    stream_s = time.time() - t0
+    launches = dict(ak.LAUNCHES)
+    if len(ids) != len(prompts[0]) + new or not np.array_equal(ids[:311], prompts[0]):
+        fail(f"[static] generate_stream returned {len(ids)} tokens")
+    if launches != _attn_launches(eng, rounds):
+        fail(f"[static] stream launches {_nonzero(launches)} for {rounds} rounds")
+
+    used = []
+    limit_of = eng._kv_limit
+    eng._kv_limit = lambda n: used.append(limit_of(n)) or used[-1]
+    want_buckets = ([512], [1024, eng._tgt_len()])
+    fused_s, fused_rounds = 0.0, 0
+    for p, want in zip(prompts, want_buckets):
+        used.clear()
+        ak.reset_launch_counts()
+        t0 = time.time()
+        out, n, r = eng.generate_fused(p, max_new_tokens=new, log=True)
+        torch.cuda.synchronize()
+        fused_s += time.time() - t0
+        fused_rounds += r
+        if len(out) != len(p) + new or out.min() < 0 or out.max() >= eng.cfg.vocab_size:
+            fail(f"[static] generate_fused of {len(p)} tokens returned {len(out)}")
+        if dict(ak.LAUNCHES) != _attn_launches(eng, r):
+            fail(f"[static] fused launches {_nonzero(ak.LAUNCHES)} for {r} rounds")
+        if sorted(set(used)) != want:
+            fail(f"[static] prompt {len(p)}: buckets {sorted(set(used))}, expected {want}")
+        for k in launches:
+            launches[k] += ak.LAUNCHES[k]
+        if len(p) == 311:
+            same = bool(np.array_equal(out, ids))
+            log(f"[static] generate_fused (bucketed) == generate_stream's ids: {same}")
+    log("[static] " + json.dumps({
+        "path": "static tree (26 nodes) + kv_buckets (512, 1024), bf16",
+        "stream_tokens_per_s": new / stream_s, "stream_rounds": rounds,
+        "fused_tokens_per_s": 2 * new / fused_s, "fused_rounds": fused_rounds,
+        "buckets_used": {"311": want_buckets[0], "977": want_buckets[1]},
+        "launches": _nonzero(launches)}))
+    return launches
+
+
+def kv8_path(dev, base: EagleEngine) -> None:
+    """The int8-KV engine over the same weights answers one request through
+    generate_fused; it must launch neither attention-side kernel."""
+    eng = full_width.engine_kv8(dev, base=base)
+    rng = np.random.default_rng(3)
+    prompt = [rng.integers(0, eng.cfg.vocab_size, n) for n in (24, 311)][1]
+    new = 128
+    eng.generate_fused(prompt[:8], max_new_tokens=16)         # warm-up
+    torch.cuda.synchronize()
+    ak.reset_launch_counts()
+    t0 = time.time()
+    out, n, rounds = eng.generate_fused(prompt, max_new_tokens=new, log=True)
+    torch.cuda.synchronize()
+    spec_s = time.time() - t0
+    if len(out) != len(prompt) + new or out.min() < 0 or out.max() >= eng.cfg.vocab_size:
+        fail(f"[kv8] request returned {len(out)} tokens")
+    if any(ak.LAUNCHES.values()):
+        fail(f"[kv8] an int8 KV cache must run no kernel: {_nonzero(ak.LAUNCHES)}")
+    cache = eng.init_target_cache()
+    if cache.k.dtype != torch.int8 or cache.ks is None:
+        fail("[kv8] the target cache is not int8 with row scales")
+    t0 = time.time()
+    van = eng.generate_vanilla(prompt, max_new_tokens=32, fused=True)
+    torch.cuda.synchronize()
+    van_s = time.time() - t0
+    log("[kv8] " + json.dumps({
+        "path": "int8 KV cache, bf16 weights, dynamic tree", "rounds": rounds,
+        "tau": n / rounds, "spec_tokens_per_s": new / spec_s,
+        "vanilla_tokens_per_s": 32 / van_s,
+        "first_free_running_divergence": int(np.argmax(
+            out[311:311 + 32] != van[311:311 + 32])) if not np.array_equal(
+            out[311:311 + 32], van[311:311 + 32]) else None,
+        "launches": _nonzero(ak.LAUNCHES)}))
+
+
+def calibrate_path(dev, base: EagleEngine) -> None:
+    timings: list = []
+    t0 = time.time()
+    n = calibrate_total_tokens(base.params, base.cfg, max_len=base.ecfg.max_len,
+                               _debug_timings=timings, device=dev)
+    cands = (40, 48, 50, 56, 60)
+    if n not in cands or len(timings) != len(cands) or not all(t > 0 for t in timings):
+        fail(f"[calibrate] returned {n} with timings {timings}")
+    log(f"[calibrate] total_tokens={n}; target forward ms at {cands} tokens: "
+        f"{[round(t * 1e3, 3) for t in timings]} (host clock between syncs, 20 reps "
+        f"each; {time.time() - t0:.1f} s in all)")
+
+
+def probe_path() -> dict:
+    """The probe's entry point with short chains: its `all` sweep launches
+    every variant of B6."""
+    ak.reset_launch_counts()
+    probe_w4_ablate.CHAIN = (1, 2)
+    rows = probe_w4_ablate.run_sweep("all")
+    launches = dict(ak.LAUNCHES)
+    for row in rows:
+        if not (row["us_per_matmul"] > 0 and np.isfinite(row["us_per_matmul"])):
+            fail(f"[probe] {row['mode']}: no time measured ({row})")
+    idle = [m for m in wab.MODES if launches[f"w4_ablate.{m}"] == 0]
+    if idle:
+        fail(f"[probe] modes never launched by the `all` sweep: {idle}")
+    return launches
 
 
 def main() -> None:
@@ -638,22 +939,36 @@ def main() -> None:
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     kernels = [check_tree_attention(dev, flush), check_compact_rows(dev, flush),
-               *check_w4_matmul(dev, flush), check_score_topk(dev, flush)]
+               *check_w4_matmul(dev, flush), check_score_topk(dev, flush),
+               *check_w4_ablate(dev, flush)]
     del flush
     torch.cuda.empty_cache()
     check_exactness(dev)
-    bf16_launches, _ = main_path(dev, "bf16", full_width.engine, (24,))
+    bf16_launches, _, eng = main_path(dev, "bf16", full_width.engine, (24,))
+    static_launches = static_path(dev, eng)
+    kv8_path(dev, eng)
+    calibrate_path(dev, eng)
+    del eng
     torch.cuda.empty_cache()
-    launches, _ = main_path(dev, "int4", full_width.engine_int4, (24, 311, 977))
+    launches, _, eng = main_path(dev, "int4", full_width.engine_int4, (24, 977))
+    del eng
+    torch.cuda.empty_cache()
+    probe_launches = probe_path()
     for k in kernels:
-        # the int4 serving path runs all five kernels; the bf16 path two
-        k["launches"] = launches[k["name"]]
-        k["launches_bf16_path"] = bf16_launches[k["name"]]
+        # the int4 serving path runs B1-B5; the bf16 and the static-tree paths
+        # B1 and B2; the probe's path every variant of B6
+        if k["name"].startswith("w4_ablate."):
+            k["launches"] = probe_launches[k["name"]]
+            k["path"] = "probe_w4_ablate `all` sweep, short chains"
+        else:
+            k["launches"] = launches[k["name"]]
+            k["launches_bf16_path"] = bf16_launches[k["name"]]
+            k["launches_static_path"] = static_launches[k["name"]]
         if k["launches"] == 0:
-            fail(f"{k['name']} was never launched on the int4 main path")
+            fail(f"{k['name']} was never launched on its path")
     for name in ("tree_attention", "compact_rows"):
-        if bf16_launches[name] == 0:
-            fail(f"{name} was never launched on the bf16 main path")
+        if bf16_launches[name] == 0 or static_launches[name] == 0:
+            fail(f"{name} was never launched on the bf16 or the static-tree path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

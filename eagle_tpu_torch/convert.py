@@ -123,4 +123,13 @@ def draft_config(dcfg, dtype=torch.float32):
 
 
 def engine_config(ecfg):
-    return EngineConfig(**_fields(ecfg, EngineConfig))
+    """The JAX package's EngineConfig → the port's, every field carried
+    across (kv_quant, draft_quant, compact_impl, ...). `tree_paths` and
+    `kv_buckets` may arrive as lists: they become the tuples the frozen
+    dataclass promises."""
+    fields = _fields(ecfg, EngineConfig)
+    if fields["tree_paths"] is not None:
+        fields["tree_paths"] = tuple(tuple(int(r) for r in p) for p in fields["tree_paths"])
+    if fields["kv_buckets"] is not None:
+        fields["kv_buckets"] = tuple(int(b) for b in fields["kv_buckets"])
+    return EngineConfig(**fields)

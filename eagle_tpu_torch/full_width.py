@@ -2,7 +2,10 @@
 with the EAGLE-3 LLaMA3.1-8B draft head, random weights made on the device
 from seeds (no checkpoints are in the repository). `engine` is the bf16
 path; `engine_int4` the int4 serving path (w4a8 target, int4 draft, fused
-draft scoring) over the same random weights.
+draft scoring) over the same random weights; `engine_static` (the published
+26-node static tree with length-bucketed decode reads) and `engine_kv8`
+(int8 target KV cache) are siblings of a bf16 engine and share its
+parameter tensors.
 
 Widths come from configs/llama3_8B_target.json (the public
 Llama-3.1-8B-Instruct config.json values) and configs/llama3_8B_eagle3_config.json.
@@ -16,12 +19,15 @@ import dataclasses
 import itertools
 import os
 
+from typing import Optional
+
 from .config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig
 from .engine.engine import EagleEngine
 from .models import draft as draft_mod
 from .models import transformer
 from .ops.quant import _QUANT_KEYS
 from .ops.quant4 import GROUP, pack_w4, stack_layer
+from .ops.tree import MC_SIM_7B_63
 
 LM_HEAD_SHARPEN = 8.0
 SEED = 0
@@ -45,6 +51,24 @@ def engine(device=None) -> EagleEngine:
     dparams = draft_mod.init_params(dcfg, seed=SEED + 1, device=device)
     dparams["embed"]["w"] = params["embed"]["w"]
     return EagleEngine(params, cfg, dparams, dcfg, ecfg, device=device)
+
+
+def engine_static(device=None, base: Optional[EagleEngine] = None) -> EagleEngine:
+    """The static-tree path at full width: the EAGLE-1 `mc_sim_7b_63` tree (26
+    nodes) drafted by the same EAGLE-3 head, `kv_buckets=(512, 1024)`, both
+    attention-side kernels on. Shares the parameter tensors of `base` (a bf16
+    `engine()`, made here when not given): no second copy of the weights."""
+    base = base if base is not None else engine(device)
+    return base._sibling(tree_paths=MC_SIM_7B_63, kv_buckets=(512, 1024))
+
+
+def engine_kv8(device=None, base: Optional[EagleEngine] = None) -> EagleEngine:
+    """`engine()`'s dynamic tree with an int8 target KV cache. With int8 rows
+    the verify attention and the compaction take their plain versions, as in
+    the JAX package, so this path launches neither kernel. Shares `base`'s
+    parameter tensors."""
+    base = base if base is not None else engine(device)
+    return base._sibling(kv_quant="int8")
 
 
 def int4_target_params(cfg: ModelConfig, device=None) -> dict:

@@ -14,7 +14,7 @@ fp32 and cast to the activation dtype.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..config import ModelConfig
 from ..ops.attn_kernels import tree_attention
-from ..ops.kv_cache import KVCache, update_layer
+from ..ops.kv_cache import KVCache, update_layer, update_layer_q
 from ..ops.masks import TreeMaskSpec, tree_mask_full
 from ..ops.quant import qdense
 from ..ops.quant4 import Stacked4, qdense4, qdense4_stacked
@@ -68,12 +68,20 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: torch.Tensor, ks: Optional[torch.Tensor] = None,
+              vs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked attention against the full KV buffer.
 
     q: [B, T, nq, d]; k/v_cache: [B, n_kv, S, d]; mask: [B, T, S] bool.
     fp32 scores and softmax; probs cast to q.dtype, then an fp32-accumulated
     product with V. Returns [B, T, nq*d].
+
+    ks/vs: optional int8-KV row scales [B, n_kv, S] (ops/kv_cache.py). The
+    int8 payload converts exactly to q.dtype; the K scale multiplies the
+    fp32 scores per column and the V scale the fp32 probabilities per
+    column, before their cast. A row's math is the same in the one-token
+    vanilla step and in the tree verify, so greedy == vanilla holds within
+    the int8-KV operating point.
     """
     B, T, nq, d = q.shape
     n_kv = k_cache.shape[1]
@@ -81,9 +89,14 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     qh = q.transpose(1, 2).reshape(B, n_kv, g, T, d)
     scores = torch.einsum("bhgtd,bhsd->bhgts", qh.float(),
                           k_cache.to(q.dtype).float())
+    if ks is not None:
+        scores = scores * ks[:, :, None, None, :]
     scores = scores * (d ** -0.5)
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, :, None, None, :]
+    probs = probs.to(q.dtype)
     out = torch.einsum("bhgts,bhsd->bhgtd", probs.float(),
                        v_cache.to(q.dtype).float()).to(q.dtype)
     return out.reshape(B, nq, T, d).transpose(1, 2).reshape(B, T, nq * d)
@@ -100,9 +113,12 @@ def _mlp_dense(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return _dense(F.silu(gate) * up, lp["w_down"])
 
 
-def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start):
+def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start,
+           ks_cache=None, vs_cache=None):
     """One decoder layer; writes its K/V rows into k/v_cache in place and
-    returns the new hidden states."""
+    returns the new hidden states. ks_cache/vs_cache: int8-KV row scales
+    [B, n_kv, S] (None for float caches): rows are quantized on write and
+    attention reads fold the scales in."""
     B, T, _ = h.shape
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
     if "wqkv" in lp:   # fused q|k|v (quantize_target_params4 fuse=True)
@@ -125,18 +141,23 @@ def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start):
     # the tree K/V land in the cache at `start` before attention; the tree
     # kernel still reads them from the fresh k/v, and only rows < start of
     # the cache
-    update_layer(k_cache, v_cache, k, v, start)
+    if ks_cache is not None:
+        update_layer_q(k_cache, v_cache, ks_cache, vs_cache, k, v, start)
+    else:
+        update_layer(k_cache, v_cache, k, v, start)
     if isinstance(mask, TreeMaskSpec):
-        if cfg.attn_impl == "pallas_tree":
+        # the tree kernel reads raw float KV; an int8 cache takes the plain
+        # dense-mask path with scale-folded reads (as in the JAX package)
+        if cfg.attn_impl == "pallas_tree" and ks_cache is None:
             attn_out = torch.stack([
                 tree_attention(q[b], k_cache[b], v_cache[b], k[b], v[b],
                                mask.tree_mask[b], mask.start[b])
                 for b in range(B)])
         else:
             dense = tree_mask_full(mask.tree_mask, k_cache.shape[2], mask.start)
-            attn_out = attention(q, k_cache, v_cache, dense)
+            attn_out = attention(q, k_cache, v_cache, dense, ks=ks_cache, vs=vs_cache)
     else:
-        attn_out = attention(q, k_cache, v_cache, mask)
+        attn_out = attention(q, k_cache, v_cache, mask, ks=ks_cache, vs=vs_cache)
     h = h + _dense(attn_out, lp["wo"])
     x = rms_norm(h, lp["ln2"], cfg.rms_eps)
     return h + _mlp_dense(x, lp)
@@ -178,8 +199,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
         for slot, tap in enumerate(cfg.tap_layers):
             if tap == i:
                 taps[slot] = h
-        h = _layer(h, lp, cfg, cache.k[i], cache.v[i], cos, sin, mask, start)
-    new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + T)
+        h = _layer(h, lp, cfg, cache.k[i], cache.v[i], cos, sin, mask, start,
+                   ks_cache=None if cache.ks is None else cache.ks[i],
+                   vs_cache=None if cache.vs is None else cache.vs[i])
+    new_cache = cache._replace(length=cache.length + T)
     hidden = rms_norm(h, params["final_norm"], cfg.rms_eps)
     return ForwardResult(hidden=hidden, pre_norm_hidden=h,
                          taps=torch.cat(taps, dim=-1), cache=new_cache)

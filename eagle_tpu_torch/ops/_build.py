@@ -20,12 +20,14 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("tree_attention", "compact_rows", "w4_matmul", "score_topk")
+SOURCES = ("tree_attention", "compact_rows", "w4_matmul", "score_topk",
+           "w4_ablate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the w4a8 sources promise one rounded multiply and one rounded add per scale
 # group, so nvcc must not contract them into fused multiply-adds
-EXTRA_FLAGS = {"w4_matmul": ("-fmad=false",), "score_topk": ("-fmad=false",)}
+EXTRA_FLAGS = {"w4_matmul": ("-fmad=false",), "score_topk": ("-fmad=false",),
+               "w4_ablate": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

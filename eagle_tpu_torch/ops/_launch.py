@@ -14,8 +14,12 @@ import torch
 
 from . import _build
 
+# the probe's wrapper (ops/w4_ablate.ablate) counts each of its modes apart
+ABLATE_MODES = ("full", "bf16_dots", "no_unpack", "no_dots", "one_dot",
+                "one_dot_bf16", "i32_storage", "fused_unpack", "batched_dot")
 LAUNCHES = {"tree_attention": 0, "compact_rows": 0, "qdense4": 0,
-            "qdense4_stacked": 0, "score_topk_quant": 0}
+            "qdense4_stacked": 0, "score_topk_quant": 0,
+            **{f"w4_ablate.{mode}": 0 for mode in ABLATE_MODES}}
 
 
 def reset_launch_counts() -> None:

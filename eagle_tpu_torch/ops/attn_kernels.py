@@ -36,6 +36,25 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _row_stride(t: torch.Tensor, d: int, name: str) -> int:
+    """Rows between two kv heads of a cache slab [.., n_kv, S, d]: S for a
+    contiguous buffer, the full buffer's S for a view of its first rows
+    (ops/kv_cache.slice_rows, length-bucketed decoding). Any other layout is
+    refused. The kernels take this number as their S: it is the head stride
+    and the clamp bound of the window starts, and a round that fits its
+    bucket never reaches the clamp."""
+    S = t.shape[-2]
+    strides = t.stride()
+    head = strides[-3]
+    ok = strides[-1] == 1 and strides[-2] == d and head % d == 0 and head >= S * d
+    for i in range(t.ndim - 3):      # leading dims are packed over the heads
+        ok = ok and (t.shape[i] == 1 or strides[i] == strides[i + 1] * t.shape[i + 1])
+    if not ok:
+        raise ValueError(f"{name}: the cache must be contiguous, or a view of the "
+                         f"first rows of a contiguous cache (strides {strides})")
+    return head // d
+
+
 def _device_int32(x, device) -> torch.Tensor:
     """A one-element int32 tensor on `device` (a device scalar stays there:
     no host sync)."""
@@ -106,8 +125,11 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
             f"tree_attention: bad shapes q{tuple(q.shape)} "
             f"k_cache{tuple(k_cache.shape)} k_tree{tuple(k_tree.shape)} "
             f"mask{tuple(tree_mask.shape)} (head_dim must be 128)")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in (q, k_tree, v_tree, tree_mask)):
         raise ValueError("tree_attention: inputs must be contiguous")
+    S = _row_stride(k_cache, d, "tree_attention")
+    if _row_stride(v_cache, d, "tree_attention") != S:
+        raise ValueError("tree_attention: k_cache and v_cache must share one layout")
     if any(t.data_ptr() % 16 for t in tensors[:5]):
         raise ValueError("tree_attention: q/k/v must be 16-byte aligned")
     # temporaries passed by pointer (st here, p32 below) may be freed when the
@@ -153,8 +175,9 @@ def compact_rows(k, v, path, start):
                          f"shape and dtype, got {tuple(k.shape)}, {tuple(v.shape)}")
     if v.device != dev or path.device != dev:
         raise ValueError("compact_rows: all tensors must be on one device")
-    if not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("compact_rows: k/v must be contiguous")
+    S = _row_stride(k, d, "compact_rows")
+    if _row_stride(v, d, "compact_rows") != S:
+        raise ValueError("compact_rows: k and v must share one layout")
     row_bytes = d * k.element_size()
     if row_bytes % 16 or P < 1 or P > S or 2 * P * row_bytes > 48 * 1024:
         raise ValueError(f"compact_rows: unsupported P={P}, row of {row_bytes} bytes "

@@ -7,8 +7,9 @@ parents[i] < i for i > 0. Index tensors are int64.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,3 +80,52 @@ def build_tree(tokens: torch.Tensor, parents: torch.Tensor, k: int, max_depth: i
     return Tree(tokens=tokens.to(torch.long), parents=parents.to(torch.long),
                 mask=mask, positions=depths_from_mask(mask),
                 children=children_table(parents, k), node_probs=node_probs)
+
+
+# ---------------------------------------------------------------------------
+# Static tree topologies (EAGLE-1 style), host-side numpy
+# ---------------------------------------------------------------------------
+
+def paths_to_parents(paths: Sequence[Sequence[int]]) -> np.ndarray:
+    """choices-style path list -> parent vector. Node 0 is the root; path i
+    creates node i+1. Each path is a tuple of child ranks from the root, and
+    every prefix must precede its extensions."""
+    index = {(): 0}
+    parents = [0]
+    for p in paths:
+        key = tuple(p)
+        if key in index:
+            continue
+        prefix = key[:-1]
+        if prefix not in index:
+            raise ValueError(f"path {p} appears before its prefix")
+        index[key] = len(parents)
+        parents.append(index[prefix])
+    return np.asarray(parents, dtype=np.int32)
+
+
+def chain_paths(depth: int) -> List[List[int]]:
+    """A depth-d chain."""
+    return [[0] * (i + 1) for i in range(depth)]
+
+
+def max_children(parents: np.ndarray) -> int:
+    if len(parents) <= 1:
+        return 1
+    return int(np.max(np.bincount(parents[1:], minlength=len(parents))))
+
+
+# The published EAGLE-1 static topology for 7B models (25 paths / 26 nodes,
+# `mc_sim_7b_63`, figure 3 of arXiv:2401.15077). Each path is a chain of
+# child ranks from the root.
+MC_SIM_7B_63 = (
+    (0,), (1,), (2,), (3,),
+    (0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (2, 0), (2, 1), (3, 0),
+    (0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 1, 0), (0, 1, 1), (0, 2, 0),
+    (0, 2, 1), (1, 0, 0),
+    (0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 0, 2),
+    (0, 0, 0, 0, 0), (0, 0, 0, 0, 1),
+)
+
+# Depth-5 chain.
+CHAIN_5 = tuple(tuple([0] * (i + 1)) for i in range(5))

@@ -1,10 +1,14 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
-    python -m eagle_tpu_torch.profile_main_path [--quant int4] [--out DIR]
+    python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8 ...] [--out DIR]
 
-Builds the full-width engine (eagle_tpu_torch/full_width.py: the bf16 path,
-or with `--quant int4` the int4 serving path: w4a8 target, int4 draft, fused
-draft scoring), prefills a prompt of CONTEXT = 1000 tokens, then:
+Builds a full-width engine (eagle_tpu_torch/full_width.py: the bf16 path;
+`int4`, the int4 serving path: w4a8 target, int4 draft, fused draft scoring;
+`static`, the 26-node static tree with kv_buckets; `kv8`, the int8 target KV
+cache), prefills a prompt of CONTEXT = 1000 tokens, then, for each path
+given (several paths run in turn in one process, the bf16, static and kv8
+engines over one set of weights, so that `--path bf16 static static bf16`
+compares two of them on one card under one host):
   - times vanilla decode steps and speculative rounds on the host clock, each
     ending in torch.cuda.synchronize();
   - profiles ROUNDS = 12 speculative rounds with torch.profiler (CPU + CUDA):
@@ -13,8 +17,8 @@ draft scoring), prefills a prompt of CONTEXT = 1000 tokens, then:
     the host), kernel launches per round, the four round steps
     (round.verify / accept / commit / draft spans, host and device ms) and
     the kernels by device time.
-Writes the profiler tables to DIR/profile_main_path[_int4].txt (default
-profile_out/) and prints one JSON line of results. Needs CUDA.
+Writes the profiler tables to DIR/profile_main_path[_PATH].txt (default
+profile_out/) and prints one JSON line of results per path. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from .ops import attn_kernels as ak
 
 ROUNDS = 12
 CONTEXT = 1000
+PATHS = ("bf16", "int4", "static", "kv8")
 
 
 def _dev_total(evt) -> float:
@@ -46,19 +51,12 @@ def _dev_self(evt) -> float:
             or getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="profile_out")
-    ap.add_argument("--quant", choices=("none", "int4"), default="none")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs CUDA")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    eng = (full_width.engine_int4 if args.quant == "int4" else full_width.engine)(dev)
+def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
+    """Time and profile ROUNDS rounds of `eng`; writes the profiler tables and
+    returns the results."""
+    # a bucketed engine runs each round against the bucket of its length; the
+    # CONTEXT and the few rounds here stay inside one bucket
+    kv_limit = eng._kv_limit(CONTEXT + (ROUNDS + 3) * eng.path_len)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, eng.cfg.vocab_size, CONTEXT)
 
@@ -66,12 +64,12 @@ def main() -> None:
     _, _, state = eng._start(prompt, None)
     with torch.no_grad():
         for _ in range(3):
-            state, _ = eng._round(state)
+            state, _ = eng._round(state, kv_limit=kv_limit)
         torch.cuda.synchronize()
         round_ms = []
         for _ in range(ROUNDS):
             t0 = time.perf_counter()
-            state, _ = eng._round(state)
+            state, _ = eng._round(state, kv_limit=kv_limit)
             torch.cuda.synchronize()
             round_ms.append((time.perf_counter() - t0) * 1e3)
         cache = state.cache
@@ -87,13 +85,13 @@ def main() -> None:
         # profiled window of speculative rounds
         _, _, state = eng._start(prompt, None)
         for _ in range(3):
-            state, _ = eng._round(state)
+            state, _ = eng._round(state, kv_limit=kv_limit)
         torch.cuda.synchronize()
         ak.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(ROUNDS):
-                state, _ = eng._round(state)
+                state, _ = eng._round(state, kv_limit=kv_limit)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -118,8 +116,8 @@ def main() -> None:
     top = sorted(kernels, key=_dev_self, reverse=True)[:14]
     round_med = float(np.median(round_ms))
     result = {
-        "card": smi.stdout.strip(), "quant": args.quant, "context": CONTEXT,
-        "rounds": n,
+        "card": card, "path": path, "context": CONTEXT,
+        "rounds": n, "tree_nodes": eng.ecfg.tree_size, "kv_limit": kv_limit,
         "round_ms_median": round_med,
         "vanilla_step_ms_median": float(np.median(step_ms)),
         "profiled_window_ms_per_round": window_ms / n,
@@ -130,15 +128,42 @@ def main() -> None:
         "spans": spans,
         "top_kernels_ms_per_round": {e.key[:80]: _dev_self(e) / 1e3 / n
                                      for e in top},
-        "launches_per_round": {k: v / n for k, v in ak.LAUNCHES.items()},
+        "launches_per_round": {k: v / n for k, v in ak.LAUNCHES.items() if v},
     }
-    os.makedirs(args.out, exist_ok=True)
-    suffix = "" if args.quant == "none" else "_" + args.quant
-    with open(os.path.join(args.out, f"profile_main_path{suffix}.txt"), "w") as f:
+    os.makedirs(out_dir, exist_ok=True)
+    suffix = "" if path == "bf16" else "_" + path
+    with open(os.path.join(out_dir, f"profile_main_path{suffix}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n\n")
         f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
-    print(json.dumps(result))
+    return result
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--path", choices=PATHS, nargs="+", default=["bf16"])
+    args = ap.parse_args()
+    paths = args.path
+    if not torch.cuda.is_available():
+        raise SystemExit("needs CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    engines: dict = {}
+    siblings = {"static": full_width.engine_static, "kv8": full_width.engine_kv8}
+    for path in paths:
+        if path not in engines and path == "int4":
+            engines[path] = full_width.engine_int4(dev)
+        elif path not in engines:
+            # static and kv8 are siblings of the bf16 engine: one set of weights
+            base = engines["bf16"] = engines.get("bf16") or full_width.engine(dev)
+            if path in siblings:
+                engines[path] = siblings[path](dev, base=base)
+        print(json.dumps(profile_path(path, engines[path], smi.stdout.strip(), args.out)),
+              flush=True)
 
 
 if __name__ == "__main__":

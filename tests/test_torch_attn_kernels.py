@@ -129,11 +129,13 @@ def test_cuda_sources_present_and_named():
     C entry point its wrapper binds."""
     import os
     assert _build.SOURCES == ("tree_attention", "compact_rows", "w4_matmul",
-                              "score_topk")
+                              "score_topk", "w4_ablate")
     for name in _build.SOURCES:
         path = os.path.join(_build.CSRC_DIR, name + ".cu")
         src = open(path).read()
         assert f'extern "C" int {name}_launch(' in src
-        assert "Replaces: eagle_tpu/ops/" in src
+        # the probe's kernel replaces a Pallas kernel under tools/
+        assert ("Replaces: tools/probe_w4_ablate.py" if name == "w4_ablate"
+                else "Replaces: eagle_tpu/ops/") in src
     assert 'extern "C" int w4_matmul_stacked_launch(' in open(
         os.path.join(_build.CSRC_DIR, "w4_matmul.cu")).read()

@@ -12,6 +12,7 @@ from eagle_tpu_torch.ops import attn_kernels as ak
 from eagle_tpu_torch.ops import quant as tq
 from eagle_tpu_torch.ops import quant4 as tq4
 from eagle_tpu_torch.ops import score_topk as stk
+from eagle_tpu_torch.ops import w4_ablate as wab
 from eagle_tpu_torch.ops.kv_cache import compact_rows_plain
 from eagle_tpu_torch.ops.tree import ancestor_mask
 
@@ -170,3 +171,44 @@ def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):
     x = torch.randn((64, 4096), generator=g)
     (xq, sx), (cq, cs) = tq.quantize_rows(x), tq.quantize_rows(x.to(dev))
     assert torch.equal(xq, cq.cpu()) and torch.equal(sx, cs.cpu())
+
+
+# ---------------------------------------------------------------------------
+# B6: the nine ablation variants of the w4a8 body, bit-identical to ablate_ref
+# (every kernel keeps its plain version's order of f32 sums)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", wab.MODES)
+@pytest.mark.parametrize("M,K,N,group,block_n", [
+    (32, 4096, 4096, 128, 256), (32, 4096, 4096, 128, 1536), (512, 1024, 512, 128, 512),
+    (5, 256, 200, 32, 128), (7, 512, 64, 16, 64)])
+def test_w4_ablate_kernel_bit_identical(dev, mode, M, K, N, group, block_n):
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    G = K // group
+    xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g, device=dev)
+    rs = (8 * xq.reshape(M, G, group).sum(dim=2, dtype=torch.int32)).contiguous()
+    if mode in wab.I32_MODES:
+        p = torch.randint(-2**31, 2**31 - 1, (K // 8, N), dtype=torch.int32,
+                          generator=g, device=dev)
+    else:
+        p = torch.randint(0, 256, (K // 2, N), dtype=torch.uint8, generator=g, device=dev)
+    s = torch.rand((G, N), generator=g, device=dev) * 1e-3 + 5e-4
+    name = f"w4_ablate.{mode}"
+    before = _launch.LAUNCHES[name]
+    got = wab.ablate(mode, xq, rs, p, s, group, block_n)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES[name] == before + 1
+    assert torch.equal(got, wab.ablate_ref(mode, xq, rs, p, s, group))   # tolerance: none
+
+
+def test_w4_ablate_kernel_refuses_what_it_cannot_take(dev):
+    xq = torch.zeros((4, 256), dtype=torch.int8, device=dev)
+    rs = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    p = torch.zeros((128, 64), dtype=torch.uint8, device=dev)
+    s = torch.ones((8, 64), device=dev)
+    with pytest.raises(ValueError, match="block_n"):
+        wab.ablate("full", xq, rs, p, s, 32, block_n=100)
+    with pytest.raises(ValueError, match="weights"):
+        wab.ablate("i32_storage", xq, rs, p, s, 32)
+    with pytest.raises(ValueError, match="one device"):
+        wab.ablate("full", xq, rs, p.cpu(), s, 32)

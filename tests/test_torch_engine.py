@@ -104,14 +104,13 @@ def test_port_capacity_stop_matches_jax():
 
 @pytest.mark.parametrize("change,error", [
     (dict(temperature=0.7), NotImplementedError),
-    (dict(kv_quant="int8"), NotImplementedError),
     (dict(draft_quant="int7"), ValueError),
-    (dict(kv_buckets=(128,)), NotImplementedError),
-    (dict(tree_paths=((0,), (1,))), NotImplementedError),
     (dict(acceptance="bogus"), ValueError)])
 def test_unported_engine_options_raise(change, error):
     """Options not ported yet raise NotImplementedError; an unknown value of a
-    ported option (draft_quant, acceptance) raises ValueError as in JAX."""
+    ported option (draft_quant, acceptance) raises ValueError as in JAX.
+    (kv_quant, kv_buckets and tree_paths are ported: tests/test_torch_kv_int8.py,
+    test_torch_kv_buckets.py, test_torch_static_tree.py.)"""
     je = make_engine(1)
     with pytest.raises(error):
         port_engine(je, **change)
@@ -123,8 +122,6 @@ def test_unported_entry_points_raise():
         pe.generate_batch([PROMPT, PROMPT])
     with pytest.raises(NotImplementedError):
         pe.generate_batch_fused([PROMPT, PROMPT])
-    with pytest.raises(NotImplementedError):
-        next(iter(pe.generate_stream(PROMPT)))
     with pytest.raises(NotImplementedError):
         pe.generate(PROMPT, max_new_tokens=4, temperature=0.5)
     with pytest.raises(NotImplementedError):

@@ -152,6 +152,13 @@ def test_unknown_draft_quant_raises_and_int8_draft_params_are_int8():
     pe = port_engine(e0, draft_quant="int8")
     want = tq.quantize_draft_params(port_engine(e0).dparams)
     assert_trees_equal(pe.dparams, want)
-    with pytest.raises(NotImplementedError):
+    # a quantized draft goes with an int8 target KV cache (the draft cache
+    # stays in the draft's dtype); an unknown kv_quant raises as in JAX
+    kv8 = port_engine(e0, draft_quant="int8", kv_quant="int8")
+    assert_trees_equal(kv8.dparams, want)
+    cache, dcache = kv8.init_caches()
+    assert cache.k.dtype == torch.int8 and cache.ks.dtype == torch.float32
+    assert dcache.k.dtype == pe.dcfg.dtype and dcache.ks is None
+    with pytest.raises(ValueError, match="kv_quant"):
         EagleEngine(pe.params, pe.cfg, pe.dparams, pe.dcfg,
-                    EngineConfig(kv_quant="int8"), device="cpu")
+                    EngineConfig(kv_quant="int4"), device="cpu")

@@ -18,7 +18,9 @@ import eagle_tpu_torch
 from eagle_tpu import config as jconfig
 from eagle_tpu_torch import convert
 from eagle_tpu_torch.config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig
-from eagle_tpu_torch.engine.engine import EagleEngine
+from eagle_tpu_torch import probe_w4_ablate
+from eagle_tpu_torch.engine.engine import EagleEngine, calibrate_total_tokens
+from eagle_tpu_torch.models import hf_loader
 from eagle_tpu_torch.models import draft as draft_mod
 from eagle_tpu_torch.models import transformer
 from eagle_tpu_torch.ops.kv_cache import init_cache
@@ -61,7 +63,8 @@ def test_walk_covers_the_quantized_modules_and_kernels():
     rel = {os.path.relpath(p, PKG) for p in _port_sources((".py", ".cu", ".cuh"))}
     assert {"ops/quant.py", "ops/quant4.py", "ops/score_topk.py", "ops/_launch.py",
             "csrc/w4_matmul.cu", "csrc/score_topk.cu", "csrc/w4_dot.cuh",
-            "csrc/tree_attention.cu", "csrc/compact_rows.cu"} <= rel
+            "csrc/tree_attention.cu", "csrc/compact_rows.cu", "csrc/w4_ablate.cu",
+            "ops/w4_ablate.py", "probe_w4_ablate.py", "models/hf_loader.py"} <= rel
 
 
 # a kernel of the port is written by hand: no library GEMM, sort or top-k, and
@@ -105,6 +108,15 @@ _ENTRY_POINTS = {
     "convert.target_params": lambda j: convert.target_params(np_tree(j.params)),
     "convert.draft_params": lambda j: convert.draft_params(np_tree(j.dparams)),
     "init_cache": lambda j: init_cache(1, 1, 1, 8, 4),
+    "init_cache[int8]": lambda j: init_cache(1, 1, 1, 8, 4, kv_quant="int8"),
+    "calibrate_total_tokens": lambda j: calibrate_total_tokens(
+        {}, convert.model_config(j.cfg), candidates=(4,), weights=(1.0,), reps=1),
+    "hf_loader.convert_target": lambda j: hf_loader.convert_target(
+        {}, convert.model_config(j.cfg)),
+    "hf_loader.convert_draft": lambda j: hf_loader.convert_draft(
+        {}, convert.draft_config(j.dcfg)),
+    "probe_w4_ablate.run_mode": lambda j: probe_w4_ablate.run_mode("full"),
+    "probe_w4_ablate.main": lambda j: probe_w4_ablate.main([]),
 }
 
 
@@ -116,6 +128,27 @@ def test_entry_points_default_to_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _ENTRY_POINTS[name](jeng)
+
+
+def test_probe_sweeps_keep_the_jax_lists():
+    """The sweeps' names and their (mode, group, block_n) lists are those of
+    tools/probe_w4_ablate.py, minus r4b's `parallel=True` run, plus `all`."""
+    s = probe_w4_ablate.SWEEPS
+    assert s["default"] == [(m, 128, bn) for m in ("full", "i32_storage", "no_unpack")
+                            for bn in (256, 1024)]
+    assert s["r4"] == [("i32_storage", 128, 1024), ("fused_unpack", 128, 1024),
+                       ("fused_unpack", 128, 2048), ("batched_dot", 128, 1024),
+                       ("batched_dot", 128, 512)]
+    assert s["m512"] == [("fused_unpack", 128, 2048), ("bf16_dots", 128, 1024),
+                         ("one_dot_bf16", 128, 1024), ("one_dot", 128, 2048)]
+    assert s["r4b"] == [("no_unpack", 128, 1024), ("no_unpack", 128, 2048),
+                        ("fused_unpack", 128, 2048), ("fused_unpack", 256, 2048),
+                        ("fused_unpack", 512, 2048), ("fused_unpack", 128, 1536)]
+    assert {m for m, _, _ in s["all"]} == set(probe_w4_ablate.ablate.__globals__["MODES"])
+    assert (probe_w4_ablate.S, probe_w4_ablate.K, probe_w4_ablate.N) == (24, 4096, 4096)
+    assert probe_w4_ablate.PEAK_BW == 3.35e12
+    with pytest.raises(ValueError, match="sweep"):
+        probe_w4_ablate.run_sweep("r5")
 
 
 def test_chip_smoke_fails_without_cuda():
