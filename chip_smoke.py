@@ -6,11 +6,15 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi); build the CUDA
      kernels from eagle_tpu_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card at its
-     path's shapes (tree attention and compaction within a stated tolerance
-     / exactly, also at the static tree's T = 26 and P = 7; the w4a8 matmuls
-     bit for bit and invariant in the number of rows; the fused scorer with
-     identical ids; the nine ablation variants of the w4a8 body bit for bit
-     at the probe's shape), and time kernel / plain / library call / bound;
+     path's shapes (tree attention within a stated tolerance, also at the
+     static tree's T = 26 and at start one below, on and one above every
+     prefix chunk edge of a 1024-row cache view; compaction exactly; the
+     w4a8 matmuls bit for bit and invariant in the number of rows, at every
+     M edge of their tiles, group size and blocked layout, and at shapes
+     that make ops/quant4.w4_plan pick each kernel instantiation; the
+     fused scorer with identical ids; the nine ablation variants of the
+     w4a8 body bit for bit at the probe's shape), and time kernel / plain /
+     library call / bound, with the kernel/library ratios;
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
      dense target, for an int4 target + int4 draft + fused scoring, for an
@@ -29,7 +33,7 @@ Phases (any failure exits non-zero):
      a forced replay of its trajectory. Every path starts with the launch
      counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}}; the run's own wall time goes to stderr.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -196,37 +200,76 @@ def check_tree_attention(dev, flush) -> dict:
         log(f"[B1] static tree T={T_STATIC}, 1024-row view, {dtype}: max_abs_err="
             f"{max_err(got, ref):.3e} (tolerance {tol})")
 
-    # timing at the main path's shape: bf16, start = 1024
+    # every split of the prefix between blocks: start one below, on and one
+    # above each chunk edge of a 1024-row view, at T = 26 and 61; and the odd
+    # shape in bf16 (g = 1: 13 rows of a 64-row tile)
+    ch = ak.TREE_CHUNK
+    starts = [0] + [e + o for e in range(ch, 1025, ch) for o in (-1, 0, 1)]
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        used = 0.0
+        for T, mask in ((T_STATIC, sm), (T_TREE, None)):
+            q, kc, vc, kt, vt, tm = inputs(T, T, NQ, NKV, S_CACHE, dtype, mask=mask)
+            args = (q, kc[:, :1024], vc[:, :1024], kt, vt, tm)
+            for start in starts:
+                st = torch.tensor(start, device=dev)
+                got, ref = ak.tree_attention(*args, st), ak.tree_attention_ref(*args, st)
+                torch.testing.assert_close(got, ref, **tol)
+                used = max(used, tol_used(got, ref, tol))
+                if dtype == torch.bfloat16:
+                    ref32 = ak.tree_attention_ref(*(a.float() if a.is_floating_point() else a
+                                                    for a in args), st)
+                    torch.testing.assert_close(got.float(), ref32, **BF16_TOL_F32)
+                    used = max(used, tol_used(got, ref32, BF16_TOL_F32))
+        log(f"[B1] {dtype}: starts {starts[1:4]}..{starts[-3:]} around every {ch}-key chunk "
+            f"edge, 1024-row view, T = {T_STATIC} and {T_TREE}: within {tol}"
+            + (f" and {BF16_TOL_F32} vs plain f32" if dtype == torch.bfloat16 else "")
+            + f"; at most {used:.3f} of a limit used")
+    args = inputs(13, 40, 8, 8, 256, torch.bfloat16, mask=bm.contiguous())
+    for start in (0, 77, 128, 256):
+        st = torch.tensor(start, device=dev)
+        got, ref = ak.tree_attention(*args, st), ak.tree_attention_ref(*args, st)
+        torch.testing.assert_close(got, ref, **BF16_TOL)
+    log(f"[B1] odd shape g=1 T=13 Tk=40 bf16, start 0 / 77 / 128 / 256: within {BF16_TOL}")
+
+    # timing at the main path's shape (bf16, start = 1024) and at the static
+    # tree's T = 26, against one SDPA call over the same keys
     start = 1024
-    args = inputs(T_TREE, T_TREE, NQ, NKV, S_CACHE, torch.bfloat16)
     st = torch.tensor([start], dtype=torch.int32, device=dev)  # as the kernel reads it
-    q, kc, vc, kt, vt, tm = args
-    ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
-    plain_ms = device_time_ms(lambda: ak.tree_attention_ref(*args, st), flush=flush)
-    # library yardstick: one SDPA call over the concatenated prefix+tree keys
-    kcat = torch.cat([kc[:, :start], kt.transpose(0, 1)], dim=1)[None]
-    vcat = torch.cat([vc[:, :start], vt.transpose(0, 1)], dim=1)[None]
-    lmask = torch.cat([torch.ones(T_TREE, start, dtype=torch.bool, device=dev), tm], 1)
-    qs = q.transpose(0, 1)[None]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kcat, vcat, attn_mask=lmask[None, None], enable_gqa=True)
-    lib_err = max_err(sdpa()[0].transpose(0, 1).reshape(T_TREE, NQ * HD),
-                      ak.tree_attention_ref(*args, st))
-    library_ms = device_time_ms(sdpa, flush=flush)
-    es = 2
-    nbytes = (2 * T_TREE * NQ * HD * es + 2 * NKV * start * HD * es
-              + 2 * T_TREE * NKV * HD * es + T_TREE * T_TREE)
-    flops = 4 * T_TREE * NQ * (start + T_TREE) * HD
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
-    log(f"[B1] bf16 start={start}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms (err vs plain {lib_err:.2e}), bound {bound_ms:.5f} ms "
-        f"({bound_by}; {nbytes} B, {flops} flop)")
+    res = {}
+    for T in (T_TREE, T_STATIC):
+        args = inputs(T, T, NQ, NKV, S_CACHE, torch.bfloat16)
+        q, kc, vc, kt, vt, tm = args
+        ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
+        plain_ms = device_time_ms(lambda: ak.tree_attention_ref(*args, st), flush=flush)
+        kcat = torch.cat([kc[:, :start], kt.transpose(0, 1)], dim=1)[None]
+        vcat = torch.cat([vc[:, :start], vt.transpose(0, 1)], dim=1)[None]
+        lmask = torch.cat([torch.ones(T, start, dtype=torch.bool, device=dev), tm], 1)
+        qs = q.transpose(0, 1)[None]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kcat, vcat, attn_mask=lmask[None, None], enable_gqa=True)
+        lib_err = max_err(sdpa()[0].transpose(0, 1).reshape(T, NQ * HD),
+                          ak.tree_attention_ref(*args, st))
+        library_ms = device_time_ms(sdpa, flush=flush)
+        es = 2
+        nbytes = (2 * T * NQ * HD * es + 2 * NKV * start * HD * es
+                  + 2 * T * NKV * HD * es + T * T)
+        flops = 4 * T * NQ * (start + T) * HD
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
+        log(f"[B1] bf16 T={T} start={start} chunk={ch}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (err vs plain {lib_err:.2e}), "
+            f"kernel/sdpa {ms / library_ms:.3f}, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {nbytes} B, {flops} flop), kernel/bound {ms / bound_ms:.1f}")
+        res[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+    r = res[T_TREE]
     return {"name": "tree_attention", "route": "cuda",
             "source": "eagle_tpu_torch/csrc/tree_attention.cu",
             "replaces": "eagle_tpu/ops/pallas_attn.py:32",
-            "max_abs_err": worst_bf16, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": worst_bf16, **r,
+            "library_ratio": r["ms"] / r["library_ms"],
+            "at_T26": {**res[T_STATIC],
+                       "library_ratio": res[T_STATIC]["ms"] / res[T_STATIC]["library_ms"]}}
 
 
 def check_compact_rows(dev, flush) -> dict:
@@ -276,7 +319,8 @@ def check_compact_rows(dev, flush) -> dict:
     nbytes = 2 * 2 * L_TGT * NKV * P * HD * 2 + 4 * P
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"[B2] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select+index_copy_ "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({nbytes} B)")
+        f"{library_ms:.4f} ms, kernel/library {ms / library_ms:.3f}, bound {bound_ms:.5f} ms "
+        f"({nbytes} B)")
     return {"name": "compact_rows", "route": "cuda",
             "source": "eagle_tpu_torch/csrc/compact_rows.cu",
             "replaces": "eagle_tpu/ops/pallas_attn.py:187",
@@ -373,7 +417,7 @@ def check_w4_matmul(dev, flush) -> list[dict]:
                 fail(f"[B3] {K}x{N}: row {i} of the M=61 call differs from the M=1 call")
         log(f"[B3] {K}x{N}: bit-identical to qdense4_ref at M = {sorted(Ms)}; "
             "row i of M=61 == the M=1 call, bitwise")
-        if (K, N) not in ((4096, 128256), (4096, 4096)):
+        if (K, N) != (4096, 128256):
             del heads[(K, N)]
     # blocked (blocks=2, same group: bit-identical to blocks=1 too), a tiny
     # group with ragged N, and a bias with an fp32 row
@@ -387,6 +431,40 @@ def check_w4_matmul(dev, flush) -> list[dict]:
     xt = torch.randn((7, 64), generator=gen, device=dev)
     same("[B3] group=16, N=37", tq4.qdense4(xt, tiny), tq4.qdense4_ref(xt, tiny))
     log("[B3] blocks=2 (== blocks=1), group=16 with ragged N=37: bit-identical")
+    # every M edge of the 64-row and m16 tiles at each group size and blocked
+    # layout; then every launch plan the shapes allow (column tile, cluster
+    # split) at bulk-copy and 4-byte-copy shapes
+    for group in (16, 32, 64, 128):
+        for blocks in (1, 2, 4):
+            w = torch.randn((1024, 200), generator=gen, device=dev).mul_(0.05)
+            qw = tq4.pack_w4(w, group, blocks)
+            x = rows(1024, 1024)
+            full = tq4.qdense4(x, qw, out_dtype=torch.float32)
+            for M in (1, 15, 16, 17, 63, 64, 65, 1024):
+                got = tq4.qdense4(x[:M], qw, out_dtype=torch.float32)
+                same(f"[B3] group={group} blocks={blocks} M={M}", got,
+                     tq4.qdense4_ref(x[:M], qw, out_dtype=torch.float32))
+                if not torch.equal(got, full[:M]):
+                    fail(f"[B3] group={group} blocks={blocks}: rows of M={M} differ from M=1024")
+    log("[B3] groups 16/32/64/128 x blocks 1/2/4 at M = 1, 15, 16, 17, 63, 64, 65, 1024: "
+        "bit-identical, rows invariant in M")
+    # every kernel instantiation, through the plan w4_plan picks: N = 132
+    # column tiles picks that tile (16-byte copies; 4-byte ones 2 columns
+    # later), fewer than 132 tiles of 8 columns the cluster split
+    picked = set()
+    for M, K, N, group in ([(61, 256, 132 * n + pad, 128) for n in tq4.W4_NTILES
+                            for pad in (0, 2)] + [(61, 256, 1024, 128), (5, 96, 37, 12)]):
+        qw = tq4.pack_w4(torch.randn((K, N), generator=gen, device=dev).mul_(0.05), group)
+        plan = tq4.w4_plan(M, K, N, qw["scale"].shape[0], 1)
+        picked.add((plan.ntile, plan.split, plan.vec))
+        x = rows(M, K)
+        same(f"[B3] [{M},{K}]x[{K},{N}] group {group} {plan}",
+             tq4.qdense4(x, qw, out_dtype=torch.float32),
+             tq4.qdense4_ref(x, qw, out_dtype=torch.float32))
+    if len(picked) != 2 * len(tq4.W4_NTILES) + 2:
+        fail(f"[B3] the shapes reached {sorted(picked)}, not every instantiation")
+    log(f"[B3] every kernel instantiation (column tile, split, 16-byte copies) "
+        f"{sorted(picked)}: bit-identical")
     # the packer gives the same words and scales on the card and on the host
     for blocks in (1, 2):
         a, c = tq4.pack_w4(w.cpu(), blocks=blocks), tq4.pack_w4(w, blocks=blocks)
@@ -400,9 +478,9 @@ def check_w4_matmul(dev, flush) -> list[dict]:
             ("qdense4_stacked", "B4", (4096, 14336), "eagle_tpu/ops/quant4.py:442"),
             ("qdense4", "B3", (4096, 128256), "eagle_tpu/ops/quant4.py:343")):
         G = K // 128
-        for M in (1, 61):
+        wb = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+        for M in ((1, 61, 1024) if tag == "B4" else (1, 61)):
             x = rows(M, K)
-            wb = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
             if tag == "B4":
                 st = stacked[(K, N)]
                 w = tq4.Stacked4(st["q4"], st["scale"], L - 1)
@@ -418,11 +496,12 @@ def check_w4_matmul(dev, flush) -> list[dict]:
                 lambda: tq4.w4_kernel(name, xq, rs, q4, sc, 1, lay), flush=flush)
             plain_ms = device_time_ms(plain, reps=5, flush=flush)
             mm_ms = device_time_ms(lambda: torch.mm(x, wb), flush=flush)
-            del wb
             bound_ms, bound_by, nbytes = _w4_bound(M, K, N, G)
+            plan = tq4.w4_plan(M, K, N, G, 1)
             log(f"[{tag}] [{M},{K}]x[{K},{N}]: wrapper (row quantization + kernel) "
                 f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}; {nbytes} B); for scale, bf16 torch.mm {mm_ms:.4f} ms")
+                f"({bound_by}; {nbytes} B); bf16 torch.mm {mm_ms:.4f} ms, kernel/mm "
+                f"{kernel_ms / mm_ms:.3f}; {plan}")
             if M == 61:
                 out.append({"name": name, "route": "cuda",
                             "source": "eagle_tpu_torch/csrc/w4_matmul.cu",
@@ -431,7 +510,10 @@ def check_w4_matmul(dev, flush) -> list[dict]:
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": None,
                             "library_note": "no one PyTorch call computes this function",
+                            "bf16_mm_ms": mm_ms, "kernel_over_bf16_mm": kernel_ms / mm_ms,
                             "shape": f"[{M},{K}]x[{K},{N}] bf16 rows"})
+        del wb
+
     # every per-layer shape of the int4 target at the vanilla step's, the
     # verify's and a padded prompt's M (layer 31 of the stack), for PERF.md
     for (K, N), st in stacked.items():
@@ -917,6 +999,7 @@ def probe_path() -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    started = time.time()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -969,6 +1052,7 @@ def main() -> None:
     for name in ("tree_attention", "compact_rows"):
         if bf16_launches[name] == 0 or static_launches[name] == 0:
             fail(f"{name} was never launched on the bf16 or the static-tree path")
+    log(f"[smoke] whole run, kernels' build included: {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

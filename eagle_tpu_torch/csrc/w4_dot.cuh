@@ -1,6 +1,8 @@
-// The w4a8 column accumulation shared by csrc/w4_matmul.cu (kernels B3, B4)
-// and csrc/score_topk.cu (kernel B5): the CUDA counterpart of
-// eagle_tpu/ops/quant4.py:_w4_block_acc.
+// The w4a8 column accumulation on `__dp4a` that csrc/score_topk.cu (kernel
+// B5) and csrc/w4_ablate.cu (kernel B6, mode i32_storage) run: the CUDA
+// counterpart of eagle_tpu/ops/quant4.py:_w4_block_acc. Kernels B3/B4
+// (csrc/w4_matmul.cu) compute the same sum, in the same order, on int8
+// tensor cores.
 //
 // Layout of the packed weights (ops/quant4.py:pack_w4): q4 is int32
 // [K/8, N] (blocked layouts flattened along the word axis). Byte b of word

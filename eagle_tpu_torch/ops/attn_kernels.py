@@ -3,7 +3,10 @@ PyTorch versions.
 
 - `tree_attention` (csrc/tree_attention.cu) replaces the Pallas kernel
   eagle_tpu/ops/pallas_attn.py:_tree_attn_kernel; its plain version is
-  `tree_attention_ref`, a port of pallas_attn.tree_attention_xla.
+  `tree_attention_ref`, a port of pallas_attn.tree_attention_xla. In bf16
+  it runs on tensor cores, split over the prefix in chunks of `TREE_CHUNK`
+  keys, and merges the chunks' partials in the same launch; `tree_plan`
+  gives the launch its grid.
 - `compact_rows` (csrc/compact_rows.cu) replaces
   pallas_attn.py:_compact_kernel; its plain version is
   ops/kv_cache.compact_accepted (`compact_rows_plain`).
@@ -29,7 +32,7 @@ from ._launch import (LAUNCHES, check_launch as _check_launch,
 from .kv_cache import compact_rows_plain
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "tree_attention",
-           "tree_attention_ref", "compact_rows"]
+           "tree_attention_ref", "tree_plan", "compact_rows"]
 
 NEG_INF = -1e30
 
@@ -40,9 +43,9 @@ def _row_stride(t: torch.Tensor, d: int, name: str) -> int:
     """Rows between two kv heads of a cache slab [.., n_kv, S, d]: S for a
     contiguous buffer, the full buffer's S for a view of its first rows
     (ops/kv_cache.slice_rows, length-bucketed decoding). Any other layout is
-    refused. The kernels take this number as their S: it is the head stride
-    and the clamp bound of the window starts, and a round that fits its
-    bucket never reaches the clamp."""
+    refused. Both kernels take this number as the head stride; B2 also
+    clamps its window starts to it (a round that fits its bucket never
+    reaches the clamp), and B1 clamps `start` to the view's own rows."""
     S = t.shape[-2]
     strides = t.stride()
     head = strides[-3]
@@ -94,7 +97,39 @@ def tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     return o.permute(2, 0, 1, 3).reshape(T, nq * d)
 
 
-_TREE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# query rows and prefix keys a block of the bf16 kernel: its geometry, which
+# the launch checks against its own
+TREE_ROWS, TREE_CHUNK = 64, 256
+
+
+def tree_plan(T: int, nq: int, n_kv: int, S_rows: int) -> dict:
+    """Grid of the bf16 kernel from host-known numbers only: (row tiles of
+    the T*g query rows of a kv head, prefix chunks + 1 for the tree's own
+    keys, n_kv heads). S_rows is the cache's row count (a view's, for a
+    row-sliced cache), not its head stride. Prefix chunk c covers keys
+    [c*TREE_CHUNK, min((c+1)*TREE_CHUNK, start)); a chunk with no key below
+    the device's `start` exits at once."""
+    return {"row_tiles": -(-T * (nq // n_kv) // TREE_ROWS),
+            "chunks": -(-S_rows // TREE_CHUNK)}
+
+
+# CUDA stream -> int32 zeros, one counter per (kv head, row tile): launches on
+# one stream run in turn, so they can share one buffer; other streams get their
+# own
+_COUNTERS: dict = {}
+
+
+def _tree_counters(stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The kernel's merge counters on `stream`: zero, and left zero by every
+    launch."""
+    c = _COUNTERS.get(stream)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[stream] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                            device=stream.device)
+    return c
+
+
+_TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
@@ -127,21 +162,31 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
             f"mask{tuple(tree_mask.shape)} (head_dim must be 128)")
     if not all(t.is_contiguous() for t in (q, k_tree, v_tree, tree_mask)):
         raise ValueError("tree_attention: inputs must be contiguous")
-    S = _row_stride(k_cache, d, "tree_attention")
-    if _row_stride(v_cache, d, "tree_attention") != S:
+    head_stride = _row_stride(k_cache, d, "tree_attention")
+    if _row_stride(v_cache, d, "tree_attention") != head_stride:
         raise ValueError("tree_attention: k_cache and v_cache must share one layout")
     if any(t.data_ptr() % 16 for t in tensors[:5]):
         raise ValueError("tree_attention: q/k/v must be 16-byte aligned")
-    # temporaries passed by pointer (st here, p32 below) may be freed when the
-    # wrapper returns: the caching allocator reuses their memory only for work
-    # queued later on the same stream, so the kernel still reads them intact
+    # temporaries passed by pointer (st, the partials, p32 below) may be freed
+    # when the wrapper returns: the caching allocator reuses their memory only
+    # for work queued later on the same stream, so the kernel still has them
     st = _device_int32(start, dev)
     out = torch.empty((T, nq * d), dtype=q.dtype, device=dev)
+    plan = tree_plan(T, nq, n_kv, S)
+    slots = n_kv * plan["row_tiles"] * (plan["chunks"] + 1)
+    if q.dtype == torch.bfloat16:
+        part_acc = torch.empty(slots * TREE_ROWS * d, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(slots * 2 * TREE_ROWS, dtype=torch.float32, device=dev)
+        counters = _tree_counters(torch.cuda.current_stream(dev), n_kv * plan["row_tiles"])
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr())
+    else:
+        scratch = (None, None, None)
     fn = _lib("tree_attention", _TREE_ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              k_tree.data_ptr(), v_tree.data_ptr(), tree_mask.data_ptr(),
-             st.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], T, Tk, nq,
-             n_kv, S, d, d ** -0.5, _stream())
+             st.data_ptr(), out.data_ptr(), *scratch, _DTYPE_CODE[q.dtype], T, Tk,
+             nq, n_kv, S, head_stride, d, TREE_ROWS, TREE_CHUNK, plan["row_tiles"],
+             plan["chunks"], d ** -0.5, _stream())
     _check_launch("tree_attention", err)
     LAUNCHES["tree_attention"] += 1
     return out

@@ -25,7 +25,9 @@ own vanilla decode.
 - `qdense4` (kernel B3, csrc/w4_matmul.cu) replaces the Pallas kernel
   eagle_tpu/ops/quant4.py:_w4_kernel; `qdense4_stacked` (kernel B4, same
   source) replaces _w4_kernel_stacked: the layer is chosen inside the launch
-  from stacked [L, K/8, N] words, never sliced into a copy.
+  from stacked [L, K/8, N] words, never sliced into a copy. The kernel runs
+  the integer dots on int8 tensor cores and the f32 chain after them;
+  `w4_plan` picks its column tile and cluster split from the shapes.
 - `qdense4_ref` / `qdense4_stacked_ref` are the plain PyTorch versions
   (a port of qdense4_xla), bit-identical to the kernels.
 
@@ -205,10 +207,55 @@ def qdense4_stacked_ref(x: torch.Tensor, w: Stacked4,
 # kernels B3 / B4 (csrc/w4_matmul.cu)
 # ---------------------------------------------------------------------------
 
-# xq, rs, q4, scale, out | M, K, N, G, blocks | stream
-_W4_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# xq, rs, q4, scale, out | M, K, N, G, L, layer | stream
-_W4_STACKED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# xq, rs, q4, scale, out | M, K, N, G, blocks | plan (ntile, split, vec, smem,
+# row tiles, column tiles) | stream
+_W4_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# xq, rs, q4, scale, out | M, K, N, G, L, layer | plan | stream
+_W4_STACKED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+# the kernel's geometry (csrc/w4_matmul.cu checks every plan against its own):
+# 64-row tiles, a ring of 4 stages of up to four k32 steps (32 word rows),
+# 227 KB of shared memory a block
+W4_BM, W4_STAGES, W4_STAGE_ROWS, W4_SMEM_MAX = 64, 4, 32, 232448
+W4_NTILES = (128, 64, 32, 16, 8)     # columns per block, widest first
+SM_COUNT = 132                  # H100 SXM: the blocks one wave needs
+
+
+class W4Plan(NamedTuple):
+    """How csrc/w4_matmul.cu runs one [M, K] x [K, N] product."""
+
+    ntile: int            # columns per block (8, 16, 32, 64 or 128)
+    split: bool           # the two halves on a cluster of two blocks (8 columns only)
+    vec: bool             # 16-byte copies (aligned rows, groups, halves, columns)
+    grid: tuple           # (row tiles, column tiles, 1 or 2)
+    smem: int             # dynamic shared memory, bytes
+    steps_per_group: int  # k32 steps of one scale group
+    short_groups: bool    # group % 32 != 0: a step zero-fills A outside its group
+
+
+def _w4_smem(ntile: int, hgb: int, split: bool) -> int:
+    stage = (W4_BM * (4 * W4_STAGE_ROWS + 16) + W4_BM * 4 + ntile * 4   # rows, rs, scales
+             + W4_STAGE_ROWS * (ntile + 8) * 4)                         # words
+    return W4_STAGES * stage + (hgb * W4_BM * ntile * 4 if split else 0)   # + rank 1's terms
+
+
+def w4_plan(M: int, K: int, N: int, G: int, blocks: int) -> W4Plan:
+    """The launch plan of kernels B3/B4, from host-known shapes only: the
+    widest column tile that still gives one block per SM (wider tiles read
+    the int8 rows fewer times); where even 8 columns give fewer (N = 1024 at
+    M <= 64), the two halves go to a cluster of two blocks. The high half
+    always reads the words again (PERF.md: keeping them in shared memory
+    measured slower at every shape)."""
+    mt = -(-M // W4_BM)
+    ntile = next((n for n in W4_NTILES if mt * -(-N // n) >= SM_COUNT), W4_NTILES[-1])
+    hgb = G // blocks // 2
+    split = (blocks == 1 and mt * -(-N // ntile) < SM_COUNT
+             and _w4_smem(ntile, hgb, True) <= W4_SMEM_MAX)
+    group = K // G
+    vec = (K % 16 == 0 and group % 16 == 0 and (K // blocks // 2) % 16 == 0
+           and N % 4 == 0)
+    return W4Plan(ntile, split, vec, (mt, -(-N // ntile), 2 if split else 1),
+                  _w4_smem(ntile, hgb, split), -(-group // 32), group % 32 != 0)
 
 
 def _check_w4(name: str, x2d, q4, scale, K: int) -> None:
@@ -227,20 +274,23 @@ def _check_w4(name: str, x2d, q4, scale, K: int) -> None:
 def w4_kernel(name: str, xq: torch.Tensor, rs: torch.Tensor, q4: torch.Tensor,
               scale: torch.Tensor, blocks: int, layer: Optional[int]) -> torch.Tensor:
     """Launch B3 (layer None) or B4 on quantized rows: int8 xq [M, K] and
-    int32 rs [M, G] -> f32 [M, N], before the row scales. Counts the launch."""
+    int32 rs [M, G] -> f32 [M, N], before the row scales, as `w4_plan`
+    plans it. Counts the launch."""
     M, K = xq.shape
     N = q4.shape[-1]
     G = rs.shape[1]
+    p = w4_plan(M, K, N, G, blocks)
+    plan = (p.ntile, int(p.split), int(p.vec), p.smem, *p.grid[:2], _launch.stream())
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     if layer is None:
         fn = _launch.entry_point("w4_matmul", _W4_ARGS)
         err = fn(xq.data_ptr(), rs.data_ptr(), q4.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), M, K, N, G, blocks, _launch.stream())
+                 out.data_ptr(), M, K, N, G, blocks, *plan)
     else:
         fn = _launch.entry_point("w4_matmul", _W4_STACKED_ARGS,
                                  "w4_matmul_stacked_launch")
         err = fn(xq.data_ptr(), rs.data_ptr(), q4.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), M, K, N, G, q4.shape[0], layer, _launch.stream())
+                 out.data_ptr(), M, K, N, G, q4.shape[0], layer, *plan)
     _launch.check_launch(name, err)
     _launch.LAUNCHES[name] += 1
     return out

@@ -111,8 +111,9 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
                 s["device_ms_per_round"] += _dev_total(e) / 1e3 / n
             else:
                 s["host_ms_per_round"] += e.cpu_time_total / 1e3 / n
-    launches = [e for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                             "cuLaunchKernelEx")]
+    # every launch API: cudaLaunchKernelExC is how a cluster launch (B3/B4's
+    # split) shows up
+    launches = [e for e in avgs if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
     top = sorted(kernels, key=_dev_self, reverse=True)[:14]
     round_med = float(np.median(round_ms))
     result = {

@@ -60,6 +60,86 @@ def test_tree_attention_ref_matches_jax(T, Tk, nq, nkv, d, S, start):
     assert ak.LAUNCHES["tree_attention"] == 0 and ak.LAUNCHES["compact_rows"] == 0
 
 
+def _key_ranges(plan: dict, start: int, S_rows: int) -> list:
+    """(chunk, first key, end key) of every prefix block of `plan` that
+    attends, as csrc/tree_attention.cu computes them from the device's
+    `start`: start clamps to [0, S_rows], chunk c covers [c*TREE_CHUNK,
+    min((c+1)*TREE_CHUNK, start)), and a chunk with no key below start exits
+    at once."""
+    start = min(max(int(start), 0), S_rows)
+    ch = ak.TREE_CHUNK
+    return [(c, c * ch, min((c + 1) * ch, start)) for c in range(-(-start // ch))]
+
+
+@pytest.mark.parametrize("T,S_rows,head_rows", [
+    (61, 2176, 2176),    # contiguous cache
+    (26, 1024, 2176),    # a 1024-row view of a 2176-row cache (kv_buckets)
+    (61, 1024, 2176),
+    (13, 300, 300)])     # a prefix shorter than two chunks
+def test_tree_plan_covers_every_prefix_row_once(T, S_rows, head_rows):
+    """The bf16 kernel's grid comes from the view's rows, not the head
+    stride; for every start in [0, S] (and past it, where start clamps) the
+    prefix blocks that attend cover rows [0, start) exactly once, each inside
+    its own chunk, and their chunk indices lie inside the grid."""
+    nq, n_kv = 32, 8
+    plan = ak.tree_plan(T, nq, n_kv, S_rows)
+    rows = T * nq // n_kv
+    assert (plan["row_tiles"] - 1) * ak.TREE_ROWS < rows <= plan["row_tiles"] * ak.TREE_ROWS
+    ch = ak.TREE_CHUNK
+    assert (plan["chunks"] - 1) * ch < S_rows <= plan["chunks"] * ch
+    assert ak.tree_plan(T, nq, n_kv, head_rows)["chunks"] >= plan["chunks"]
+    for start in list(range(S_rows + 1)) + [S_rows + 7]:
+        covered = []
+        for c, k0, k1 in _key_ranges(plan, start, S_rows):
+            assert 0 <= c < plan["chunks"] and k0 < k1
+            assert c * ch == k0 and k1 <= (c + 1) * ch
+            covered.extend(range(k0, k1))
+        assert covered == list(range(min(start, S_rows))), start
+
+
+def _split_merge(q, kc, vc, kt, vt, tm, start):
+    """The bf16 kernel's arithmetic in plain f32 torch: one partial (row max m,
+    row sum l, unnormalised acc) per prefix chunk below `start` and one for
+    the tree's keys, merged in chunk order."""
+    T, nq, d = q.shape
+    n_kv, S, _ = kc.shape
+    g = nq // n_kv
+    qh = q.reshape(T, n_kv, g, d).permute(1, 2, 0, 3)                   # [h, g, T, d]
+    plan = ak.tree_plan(T, nq, n_kv, S)
+    parts = []
+    for _, k0, k1 in _key_ranges(plan, start, S):
+        parts.append((torch.einsum("hgtd,hsd->hgts", qh, kc[:, k0:k1]) * d ** -0.5,
+                      vc[:, k0:k1]))
+    st = torch.einsum("hgtd,hsd->hgts", qh, kt.transpose(0, 1)) * d ** -0.5
+    parts.append((torch.where(tm[None, None], st, torch.tensor(ak.NEG_INF)),
+                  vt.transpose(0, 1)))
+    ms, ls, accs = [], [], []
+    for s, v in parts:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("hgts,hsd->hgtd", p, v))
+    M = torch.stack(ms).amax(0)
+    w = [torch.exp(m - M) for m in ms]
+    l = sum(wi * li for wi, li in zip(w, ls))
+    o = sum(wi * ai for wi, ai in zip(w, accs)) / torch.clamp(l, min=1e-30)
+    return o.permute(2, 0, 1, 3).reshape(T, nq * d)
+
+
+@pytest.mark.parametrize("start", [0, 1, 255, 256, 257, 511, 600])
+def test_split_merge_arithmetic_matches_jax(start):
+    """Chunk partials and their merge give tree_attention_xla's output in f32.
+    Tolerance rtol = atol = 1e-5: the sums run in another order (per chunk,
+    then across chunks) and exp(s - m_c) * exp(m_c - M) rounds twice where
+    exp(s - M) rounds once."""
+    args = _inputs(13, 13, 8, 2, 32, 600, seed=start)
+    want = np.asarray(pallas_attn.tree_attention_xla(
+        *[jnp.asarray(a) for a in args], jnp.int32(start)))
+    got = _split_merge(*[t(a) for a in args], start)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("start,path,alen", [
     (20, [0, 3, 7, 7, 7, 7, 7], 3),      # repeats its last node: overlap
     (0, [0, 1, 2, 5, 9, 12, 14], 6),
@@ -130,6 +210,8 @@ def test_cuda_sources_present_and_named():
     import os
     assert _build.SOURCES == ("tree_attention", "compact_rows", "w4_matmul",
                               "score_topk", "w4_ablate")
+    headers = sorted(n for n in os.listdir(_build.CSRC_DIR) if n.endswith(".cuh"))
+    assert headers == ["ptx.cuh", "w4_dot.cuh"]
     for name in _build.SOURCES:
         path = os.path.join(_build.CSRC_DIR, name + ".cu")
         src = open(path).read()

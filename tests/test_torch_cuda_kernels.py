@@ -53,6 +53,75 @@ def test_tree_attention_kernel(dev, dtype, tol, start):
     assert ak.LAUNCHES["tree_attention"] == before + 1
 
 
+# the tolerances above, by dtype; bf16 is also held to half an ulp of the
+# plain version's f32 output
+B1_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+def _b1_check(got, args, st):
+    ref = ak.tree_attention_ref(*args, st)
+    torch.testing.assert_close(got, ref, **B1_TOL[got.dtype])
+    if got.dtype == torch.bfloat16:
+        ref32 = ak.tree_attention_ref(*(a.float() if a.is_floating_point() else a
+                                        for a in args), st)
+        torch.testing.assert_close(got.float(), ref32, rtol=2.0 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [26, 61])
+def test_tree_attention_kernel_chunk_edges(dev, dtype, T):
+    """`start` one below, on and one above every prefix chunk edge of a
+    1024-row view of a 2176-row cache (kv_buckets), at the static tree's T
+    and the dynamic tree's: every split of the prefix between blocks."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    rng = np.random.default_rng(T)
+    parents = torch.tensor([0] + [int(rng.integers(0, i)) for i in range(1, T)],
+                           device=dev)
+    kc, vc = r(8, 2176, 128), r(8, 2176, 128)
+    args = (r(T, 32, 128), kc[:, :1024], vc[:, :1024], r(T, 8, 128), r(T, 8, 128),
+            ancestor_mask(parents, T).contiguous())
+    ch = ak.TREE_CHUNK
+    for start in [0] + [e + o for e in range(ch, 1025, ch) for o in (-1, 0, 1)]:
+        st = torch.tensor(start, device=dev)
+        _b1_check(ak.tree_attention(*args, st), args, st)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_attention_kernel_odd_shape(dev, dtype):
+    """g = 1, T = 13 queries against a non-square Tk = 40 slab under a
+    random mask (T*g not a multiple of the 64-row tile)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    bm = torch.rand((13, 40), generator=g, device=dev) < 0.3
+    bm[:, 0] = True
+    args = (r(13, 8, 128), r(8, 256, 128), r(8, 256, 128), r(40, 8, 128), r(40, 8, 128),
+            bm.contiguous())
+    for start in (0, 77, 128, 256):
+        st = torch.tensor(start, device=dev)
+        _b1_check(ak.tree_attention(*args, st), args, st)
+
+
+def test_tree_attention_merge_counters_left_zero(dev):
+    """The bf16 kernel's merge counters are zero after every launch, and a
+    second stream gets a buffer of its own."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    args = (r(61, 32, 128), r(8, 2176, 128), r(8, 2176, 128), r(61, 8, 128),
+            r(61, 8, 128), torch.ones((61, 61), dtype=torch.bool, device=dev).tril())
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for start in (0, 1000, 2176):
+        st = torch.tensor(start, device=dev)
+        ak.tree_attention(*args, st)
+        with torch.cuda.stream(side):
+            _b1_check(ak.tree_attention(*args, st), args, st)
+    torch.cuda.synchronize()
+    assert {torch.cuda.current_stream(dev), side} <= set(ak._COUNTERS)
+    assert all(int(c.abs().sum()) == 0 for c in ak._COUNTERS.values())
+
+
 def test_compact_rows_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     k = torch.randn((32, 1, 8, 2176, 128), generator=g, device=dev).to(torch.bfloat16)
@@ -115,6 +184,68 @@ def test_qdense4_stacked_kernel_bit_identical(dev):
         assert torch.equal(one, got[7:8])
     with pytest.raises(IndexError):
         tq4.qdense4_stacked(x, tq4.Stacked4(st["q4"], st["scale"], L))
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_qdense4_kernel_rows_groups_blocks(dev, group, blocks):
+    """Every M edge of the 64-row tile and of the m16 tiles, each group
+    size and blocked layout: bit-identical to qdense4_ref, and each row the
+    same bits as in the M = 1024 call."""
+    x, qw = _w4_case(dev, 1024, 1024, 200, group + blocks, blocks, group, torch.bfloat16)
+    full = tq4.qdense4(x, qw, out_dtype=torch.float32)
+    for M in (1, 15, 16, 17, 63, 64, 65, 1024):
+        got = tq4.qdense4(x[:M], qw, out_dtype=torch.float32)
+        assert torch.equal(got, tq4.qdense4_ref(x[:M], qw, out_dtype=torch.float32)), M
+        assert torch.equal(got, full[:M]), M
+
+
+@pytest.mark.parametrize("K,stacked", [(14336, True), (12288, False)])
+def test_w4_kernel_long_k(dev, K, stacked):
+    """The down projection's K (B4) and the draft fc's K (B3), N = 4096."""
+    x, qw = _w4_case(dev, 65, K, 4096, K, dtype=torch.bfloat16)
+    if stacked:
+        w = tq4.Stacked4(qw["q4"][None], qw["scale"][None], 0)
+        run = lambda a: tq4.qdense4_stacked(a, w, out_dtype=torch.float32)
+        ref = lambda a: tq4.qdense4_stacked_ref(a, w, out_dtype=torch.float32)
+    else:
+        run = lambda a: tq4.qdense4(a, qw, out_dtype=torch.float32)
+        ref = lambda a: tq4.qdense4_ref(a, qw, out_dtype=torch.float32)
+    full = run(x)
+    for M in (1, 61, 64, 65):
+        assert torch.equal(run(x[:M]), ref(x[:M])), M
+        assert torch.equal(run(x[:M]), full[:M]), M
+
+
+# (M, K, N, group, blocks, (column tile, cluster split, 16-byte copies) that
+# ops/quant4.w4_plan picks): every instantiation of csrc/w4_matmul.cu. One
+# block per SM needs 132 column tiles at M <= 64, so N = 132 * tile picks
+# that tile with 16-byte copies, and N = 132 * tile + 2 (not a multiple of
+# 4 columns) with 4-byte copies; under 132 tiles of 8 columns the halves
+# split over a cluster
+W4_TILE_CASES = [
+    *[(61, 256, 132 * n + pad, 128, 1, (n, False, pad == 0))
+      for n in (128, 64, 32, 16, 8) for pad in (0, 2)],
+    (61, 256, 1024, 128, 1, (8, True, True)),
+    (70, 64, 40, 16, 1, (8, True, True)),       # two row tiles, groups of 16
+    (5, 96, 37, 12, 1, (8, True, False)),       # groups of 12: 4-byte copies
+    (9, 32, 9, 128, 1, (8, True, False)),       # K = 32: one group of 16 a half
+    (33, 512, 72, 128, 4, (8, False, True)),    # blocked: never split
+]
+
+
+@pytest.mark.parametrize("M,K,N,group,blocks,want", W4_TILE_CASES)
+def test_w4_kernel_every_instantiation_bit_identical(dev, M, K, N, group, blocks, want):
+    """Each column tile with 16-byte and 4-byte copies, and the cluster
+    split, reached through w4_plan at shapes that pick it: bit-identical to
+    qdense4_ref and invariant in the number of rows."""
+    x, qw = _w4_case(dev, M, K, N, M + N, blocks, group)
+    G = qw["scale"].numel() // N
+    plan = tq4.w4_plan(M, K, N, G, blocks)
+    assert (plan.ntile, plan.split, plan.vec) == want
+    got = tq4.qdense4(x, qw, out_dtype=torch.float32)
+    assert torch.equal(got, tq4.qdense4_ref(x, qw, out_dtype=torch.float32))
+    assert torch.equal(tq4.qdense4(x[-1:], qw, out_dtype=torch.float32), got[-1:])
 
 
 def test_pack_w4_same_words_on_the_card_and_the_cpu(dev):

@@ -275,3 +275,59 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tq4.qdense4_stacked(x, st)
     assert _launch.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of kernels B3/B4 (csrc/w4_matmul.cu), from shapes alone
+# ---------------------------------------------------------------------------
+
+# (K, N) of every w4a8 product of the int4 serving path: target q/o, k/v,
+# gate/up, down, lm_head; draft wqkv, gate|up, fc
+MAIN_W4_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                  (4096, 128256), (8192, 6144), (4096, 28672), (12288, 4096)]
+
+
+@pytest.mark.parametrize("M", [1, 10, 61, 1024])
+def test_w4_plan_covers_n_fits_shared_memory_and_fills_the_card(M):
+    for K, N in MAIN_W4_SHAPES:
+        G = K // tq4.GROUP
+        plan = tq4.w4_plan(M, K, N, G, 1)
+        rt, ct, ranks = plan.grid
+        assert (ct - 1) * plan.ntile < N <= ct * plan.ntile
+        assert (rt - 1) * tq4.W4_BM < M <= rt * tq4.W4_BM
+        assert plan.vec and not plan.short_groups and plan.steps_per_group == 4
+        assert rt * ct * ranks >= tq4.SM_COUNT, (K, N, plan)
+        assert plan.smem <= tq4.W4_SMEM_MAX and plan.split == (ranks == 2)
+        assert not plan.split or plan.ntile == 8      # the kernel splits 8 columns only
+    for K in (4096, 8192, 12288, 14336):
+        assert tq4._w4_smem(64, K // tq4.GROUP // 2, False) <= 227 * 1024
+
+
+def test_w4_plan_reaches_every_kernel_instantiation():
+    """The card tests' shapes (tests/test_torch_cuda_kernels.W4_TILE_CASES)
+    make w4_plan pick each instantiation of csrc/w4_matmul.cu: every column
+    tile with 16-byte and with 4-byte copies, and the cluster split."""
+    from test_torch_cuda_kernels import W4_TILE_CASES
+
+    picked = set()
+    for M, K, N, group, blocks, want in W4_TILE_CASES:
+        G = K // tq4._eff_group(K // blocks, group)
+        plan = tq4.w4_plan(M, K, N, G, blocks)
+        assert (plan.ntile, plan.split, plan.vec) == want, (M, K, N, group, plan)
+        picked.add(want)
+    assert picked == {(n, False, v) for n in tq4.W4_NTILES for v in (True, False)} | {
+        (8, True, True), (8, True, False)}
+
+
+@pytest.mark.parametrize("K,group,short,steps,vec", [
+    (64, 16, True, 1, True),       # group 16: half of a k32 step is zero
+    (32, 128, True, 1, True),      # K = 32: the group shrinks to 16
+    (96, 48, True, 2, True),       # group 48: a step and a half
+    (96, 12, True, 1, False),      # group 12: 4-byte copies
+    (4096, 32, False, 1, True),
+    (4096, 256, False, 8, True),   # two stages per group
+    (512, 128, False, 4, True)])
+def test_w4_plan_marks_groups_shorter_than_a_step(K, group, short, steps, vec):
+    g = tq4._eff_group(K, group)
+    plan = tq4.w4_plan(7, K, 64, K // g, 1)
+    assert (plan.short_groups, plan.steps_per_group, plan.vec) == (short, steps, vec)
