@@ -8,13 +8,17 @@ Phases (any failure exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card at its
      path's shapes (tree attention within a stated tolerance, also at the
      static tree's T = 26 and at start one below, on and one above every
-     prefix chunk edge of a 1024-row cache view; compaction exactly; the
+     prefix chunk edge of a 1024-row cache view; compaction exactly, on the
+     overlapping path, an identity path, an identity prefix with moves,
+     P = 1, a window clamped at the cache's end and a row-sliced view; the
      w4a8 matmuls bit for bit and invariant in the number of rows, at every
      M edge of their tiles, group size and blocked layout, and at shapes
      that make ops/quant4.w4_plan pick each kernel instantiation; the
-     fused scorer with identical ids; the nine ablation variants of the
-     w4a8 body bit for bit at the probe's shape), and time kernel / plain /
-     library call / bound, with the kernel/library ratios;
+     fused scorer with identical ids at M = 1, 10, 17, 32; the nine ablation
+     variants of the w4a8 body bit for bit at the probe's shape), and time
+     kernel / plain / library call / bound, with the kernel/library ratios
+     (the fused scorer: wrapper, kernel alone and the unfused chain the
+     drafter runs without fused scoring, at M = 1 and 10);
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
      dense target, for an int4 target + int4 draft + fused scoring, for an
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch import full_width, probe_w4_ablate
+from eagle_tpu_torch.compare_kernels import device_time_ms
 from eagle_tpu_torch.config import DraftConfig, EngineConfig, ModelConfig
 from eagle_tpu_torch.engine.engine import EagleEngine, calibrate_total_tokens
 from eagle_tpu_torch.models import draft as draft_mod
@@ -77,7 +82,6 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 T_TREE, NQ, NKV, HD, S_CACHE = 61, 32, 8, 128, 2176   # slice shapes (layer view)
 L_TGT, PATH = 32, [0, 3, 7, 7, 7, 7, 7]
 T_STATIC = len(MC_SIM_7B_63) + 1                      # the static tree's 26 nodes
-HOST_LEAD_CYCLES = 2_000_000     # ~1 ms of device spin ahead of each timed call
 # the kernels an engine can launch (the w4_ablate variants belong to the probe)
 ENGINE_KERNELS = ("tree_attention", "compact_rows", "qdense4", "qdense4_stacked",
                   "score_topk_quant")
@@ -90,30 +94,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAILED: {msg}")
     sys.exit(1)
-
-
-def device_time_ms(fn, reps: int = 30, flush: torch.Tensor | None = None) -> float:
-    """Median device time of one call (CUDA events) after warm-up. With
-    `flush`, a write over a buffer larger than L2 precedes every timed call,
-    so the call finds its inputs in device memory, as the main path does.
-    A device-side spin of ~1 ms before the start event keeps the card busy
-    while the host enqueues the call, so the events bracket device work and
-    not host launch gaps."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(HOST_LEAD_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def rand_tree_mask(T: int, rng: np.random.Generator, dev) -> torch.Tensor:
@@ -281,18 +261,24 @@ def check_compact_rows(dev, flush) -> dict:
     path = torch.tensor(PATH, device=dev)
     P = len(PATH)
     worst = 0.0
-    for start in (0, 1000, S_CACHE - 64):
+    # the overlapping path at three starts (the last clamps the window at the
+    # end), an all-identity path, an identity prefix followed by moves, P = 1
+    cases = [(PATH, 0), (PATH, 1000), (PATH, S_CACHE - 64), (PATH, S_CACHE - 3),
+             (list(range(P)), 1000), ([0, 1, 2, 5, 9, 12, 14], 1000), ([0], 1000),
+             ([4], 1000)]
+    for p, start in cases:
         st = torch.tensor(start, device=dev)
+        pt = torch.tensor(p, device=dev)
         k1, v1 = k0.clone(), v0.clone()
         k2, v2 = k0.clone(), v0.clone()
-        ak.compact_rows(k1, v1, path, st)
-        compact_rows_plain(k2, v2, path, st)
+        ak.compact_rows(k1, v1, pt, st)
+        compact_rows_plain(k2, v2, pt, st)
         torch.cuda.synchronize()
         for got, exp in ((k1, k2), (v1, v2)):
             if not torch.equal(got, exp):
-                fail(f"compact_rows start={start}: differs from compact_accepted")
-            worst = max(worst, max_err(got[..., : start + P, :], exp[..., : start + P, :]))
-        log(f"[B2] start={start:5d}: identical to compact_accepted, all rows "
+                fail(f"compact_rows path={p} start={start}: differs from compact_accepted")
+            worst = max(worst, max_err(got, exp))
+        log(f"[B2] path={p} start={start:5d}: identical to compact_accepted, all rows "
             "(tolerance: exact)")
     # through a row-sliced view (kv_buckets), as the static-tree path calls it
     st = torch.tensor(700, device=dev)
@@ -529,7 +515,9 @@ def check_w4_matmul(dev, flush) -> list[dict]:
 
 
 def check_score_topk(dev, flush) -> dict:
-    """B5 against score_topk_ref: ids identical, scores within stk.SCORE_TOL."""
+    """B5 against score_topk_ref: ids identical, scores within stk.SCORE_TOL.
+    Times the wrapper, the w4 kernel alone and the unfused chain the drafter
+    runs with fuse_scoring=False, at the root's M = 1 and a beam stage's M = 10."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     worst = 0.0
@@ -542,7 +530,7 @@ def check_score_topk(dev, flush) -> dict:
             if Vc == V:
                 heads[kind] = qw
             for dtype in (torch.float32, torch.bfloat16):
-                for M in (1, 10, 32):
+                for M in (1, 10, 17, 32):
                     h = torch.randn((M, Kc), generator=gen, device=dev).to(dtype)
                     lp, ids = stk.score_topk_quant(h, qw, kc)
                     ref_lp, ref_ids = stk.score_topk_ref(h, qw, kc)
@@ -560,30 +548,58 @@ def check_score_topk(dev, flush) -> dict:
         if ids[0].tolist() != [7, 63, 64, 450, 900] or not torch.equal(
                 ids, stk.score_topk_ref(torch.ones((2, 256), device=dev), qw, 5)[1]):
             fail(f"[B5] {kind}: forced ties gave {ids[0].tolist()}")
-        log(f"[B5] {kind}: ids identical at V = 32000 and 1000, M = 1, 10, 32, f32 and "
+        log(f"[B5] {kind}: ids identical at V = 32000 and 1000, M = 1, 10, 17, 32, f32 and "
             f"bf16 rows, forced ties in index order; scores max abs err so far "
             f"{worst:.3e} (tolerance {stk.SCORE_TOL})")
-    h = torch.randn((10, K), generator=gen, device=dev).to(torch.bfloat16)
-    res = None
-    for kind in ("w8", "w4"):
+
+    def unfused(h, qw):
+        # what drafter.score_topk runs with fuse_scoring=False: B3, the cast,
+        # log_softmax and the stable top-k
+        return stk.topk_rows(torch.log_softmax(tq4.qdense4(h, qw).to(torch.float32), dim=-1), k)
+
+    res = {}
+    for kind, M in (("w8", 10), ("w4", 1), ("w4", 10)):
         qw = heads[kind]
+        h = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         ms = device_time_ms(lambda: stk.score_topk_quant(h, qw, k), flush=flush)
         plain_ms = device_time_ms(lambda: stk.score_topk_ref(h, qw, k), reps=10, flush=flush)
         wbytes = K * V // 2 + 4 * (K // 128) * V if kind == "w4" else K * V + 4 * V
-        nbytes = wbytes + 10 * K + 4 * 10 * (K // 128) + 4 * 10 + 8 * 10 * k
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * 10 * K * V / INT8_OPS_PER_S
+        rs_bytes = 4 * M * (K // 128) if kind == "w4" else 0
+        nbytes = wbytes + M * K + rs_bytes + 4 * M + 12 * M * k
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * K * V / INT8_OPS_PER_S
         bound_ms, bound_by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-        log(f"[B5] {kind} [10,{K}]x[{K},{V}] k={k} bf16 rows: wrapper (row quantization "
-            f"+ two kernels) {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by}; {nbytes} B)")
-        res = {"name": "score_topk_quant", "route": "cuda",
-               "source": "eagle_tpu_torch/csrc/score_topk.cu",
-               "replaces": "eagle_tpu/ops/score_topk.py:238", "max_abs_err": worst,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None,
-               "library_note": "no one PyTorch call computes this function",
-               "shape": f"w4 [10,{K}]x[{K},{V}] k={k} bf16 rows"}
-    return res
+        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if kind == "w8":
+            log(f"[B5] w8 [{M},{K}]x[{K},{V}] k={k} bf16 rows: wrapper (row quantization "
+                f"+ two kernels) {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B)")
+            res["w8"] = r
+            continue
+        xq, sx, rs = tq4.quantize_for_w4(h, K // 128)
+        kernel_ms = device_time_ms(lambda: stk.w4_score_kernel(
+            xq, sx, rs, qw["q4"], qw["scale"], k, 1), flush=flush)
+        unfused_ms = device_time_ms(lambda: unfused(h, qw), flush=flush)
+        u_lp, u_ids = unfused(h, qw)
+        lp, ids = stk.score_topk_quant(h, qw, k)
+        torch.cuda.synchronize()
+        if not torch.equal(ids, u_ids):
+            fail(f"[B5] w4 M={M}: ids differ from the unfused chain")
+        torch.testing.assert_close(lp, u_lp, **stk.SCORE_TOL)
+        log(f"[B5] w4 [{M},{K}]x[{K},{V}] k={k} bf16 rows: wrapper (row quantization + "
+            f"one kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, unfused chain "
+            f"(qdense4, cast, log_softmax, topk_rows) {unfused_ms:.4f} ms, wrapper/unfused "
+            f"{ms / unfused_ms:.3f}, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {nbytes} B); {stk.score_plan(M, K, V, K // 128)}")
+        res[M] = dict(r, kernel_ms=kernel_ms, unfused_ms=unfused_ms)
+    return {"name": "score_topk_quant", "route": "cuda",
+            "source": "eagle_tpu_torch/csrc/score_topk.cu",
+            "replaces": "eagle_tpu/ops/score_topk.py:238", "max_abs_err": worst,
+            **res[10], "library_ms": None,
+            "library_note": "no one PyTorch call computes this function; unfused_ms is "
+                            "the drafter's unfused chain (qdense4, cast, log_softmax, "
+                            "topk_rows)",
+            "shape": f"w4 [10,{K}]x[{K},{V}] k={k} bf16 rows",
+            "at_M1": res[1], "w8": res["w8"]}
 
 
 def check_w4_ablate(dev, flush) -> list[dict]:
@@ -1017,7 +1033,7 @@ def main() -> None:
     log(f"[build] {len(_build.SOURCES)} CUDA sources built in {time.time() - t0:.1f} s")
     for name, out in _build.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)

@@ -28,7 +28,7 @@
 //   one_dot       u8   per half one dot of xq[:, :K/2] over all K/2 rows,
 //                      times scale[0, :]
 //   one_dot_bf16  u8   the same with float multiply-adds
-//   i32_storage   i32  `full`'s sum: this is B3's own body, w4::column_acc
+//   i32_storage   i32  `full`'s sum through w4::column_acc (csrc/w4_dot.cuh)
 //   fused_unpack  i32  each word read once: low group g and high group hg + g
 //                      come from the same words; terms added g, hg+g, g+1, ..
 //   batched_dot   i32  all G integer dots first, staged in shared memory as

@@ -1,8 +1,8 @@
-// The w4a8 column accumulation on `__dp4a` that csrc/score_topk.cu (kernel
-// B5) and csrc/w4_ablate.cu (kernel B6, mode i32_storage) run: the CUDA
+// The w4a8 column accumulation on `__dp4a`, the first body, that only
+// csrc/w4_ablate.cu (kernel B6, mode i32_storage) still runs: the CUDA
 // counterpart of eagle_tpu/ops/quant4.py:_w4_block_acc. Kernels B3/B4
-// (csrc/w4_matmul.cu) compute the same sum, in the same order, on int8
-// tensor cores.
+// (csrc/w4_matmul.cu) and B5 (csrc/score_topk.cu) compute the same sum, in
+// the same order, on int8 tensor cores (csrc/w4_mma.cuh).
 //
 // Layout of the packed weights (ops/quant4.py:pack_w4): q4 is int32
 // [K/8, N] (blocked layouts flattened along the word axis). Byte b of word

@@ -50,5 +50,17 @@ def require_cuda(name: str, t: torch.Tensor) -> None:
                          f"{t.device} (CPU tensors take the plain version)")
 
 
+def zeroed_counters(table: dict, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """At least `n` int32 zeros on `stream`'s device, kept in `table` per
+    stream: a kernel that merges in its last block counts its blocks there
+    and leaves the counters zero. Launches on one stream run in turn, so they
+    share one buffer; other streams get their own."""
+    c = table.get(stream)
+    if c is None or c.numel() < n:
+        c = table[stream] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=stream.device)
+    return c
+
+
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from . import _launch
 from ._launch import (LAUNCHES, check_launch as _check_launch,
                       entry_point as _lib, require_cuda as _require_cuda,
                       reset_launch_counts, stream as _stream)
@@ -113,21 +114,9 @@ def tree_plan(T: int, nq: int, n_kv: int, S_rows: int) -> dict:
             "chunks": -(-S_rows // TREE_CHUNK)}
 
 
-# CUDA stream -> int32 zeros, one counter per (kv head, row tile): launches on
-# one stream run in turn, so they can share one buffer; other streams get their
-# own
+# CUDA stream -> the bf16 kernel's merge counters, one per (kv head, row
+# tile): zero, and left zero by every launch
 _COUNTERS: dict = {}
-
-
-def _tree_counters(stream: torch.cuda.Stream, n: int) -> torch.Tensor:
-    """The kernel's merge counters on `stream`: zero, and left zero by every
-    launch."""
-    c = _COUNTERS.get(stream)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[stream] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                            device=stream.device)
-    return c
-
 
 _TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -177,7 +166,8 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     if q.dtype == torch.bfloat16:
         part_acc = torch.empty(slots * TREE_ROWS * d, dtype=torch.float32, device=dev)
         part_ml = torch.empty(slots * 2 * TREE_ROWS, dtype=torch.float32, device=dev)
-        counters = _tree_counters(torch.cuda.current_stream(dev), n_kv * plan["row_tiles"])
+        counters = _launch.zeroed_counters(_COUNTERS, torch.cuda.current_stream(dev),
+                                           n_kv * plan["row_tiles"])
         scratch = (part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr())
     else:
         scratch = (None, None, None)
@@ -197,6 +187,9 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
 # ---------------------------------------------------------------------------
 
 _COMPACT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the P rows of one slab a block holds in registers: 128 threads x 16 words
+# of 16 bytes (csrc/compact_rows.cu)
+COMPACT_MAX_BYTES = 128 * 16 * 16
 
 
 def compact_rows(k, v, path, start):
@@ -224,9 +217,10 @@ def compact_rows(k, v, path, start):
     if _row_stride(v, d, "compact_rows") != S:
         raise ValueError("compact_rows: k and v must share one layout")
     row_bytes = d * k.element_size()
-    if row_bytes % 16 or P < 1 or P > S or 2 * P * row_bytes > 48 * 1024:
+    if row_bytes % 16 or P < 1 or P > S or P * row_bytes > COMPACT_MAX_BYTES:
         raise ValueError(f"compact_rows: unsupported P={P}, row of {row_bytes} bytes "
-                         "(rows must be a multiple of 16 bytes)")
+                         f"(rows must be a multiple of 16 bytes, P rows at most "
+                         f"{COMPACT_MAX_BYTES} bytes)")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("compact_rows: k/v must be 16-byte aligned")
     p32 = path.to(torch.int32).contiguous()

@@ -5,7 +5,10 @@ Port of eagle_tpu/ops/score_topk.py. `score_topk_quant` (kernel B5,
 csrc/score_topk.cu) replaces the Pallas kernel _score_topk_kernel;
 `score_topk_ref` is the plain version: the unfused chain through
 `qdense` / `qdense4_ref`, the cast through the hidden dtype, `log_softmax`
-and the stable-sort `topk_rows`.
+and the stable-sort `topk_rows`. For an int4 head the kernel runs B3/B4's
+main loop on int8 tensor cores and merges its column tiles in the same
+launch, as `score_plan` plans it (`w4_score_kernel` launches it on rows
+already quantized); an int8 head keeps a tile kernel and a merge kernel.
 
 Contract: candidate ids are bit-identical to the unfused chain (the same
 logit values, the same order: value descending, then index ascending);
@@ -17,19 +20,20 @@ and packed int4 {"q4", "scale"} in the single-block layout.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _launch
 from .quant import qdense, quantize_rows
-from .quant4 import _blocks_of, _k_of, _rowsums8, qdense4_ref
+from .quant4 import (W4_STAGE_ROWS, W4_STAGES, W4_SMEM_MAX, _blocks_of, _k_of,
+                     qdense4_ref, quantize_for_w4)
 
-# fused vs unfused scores: the logsumexp is summed per 64-column tile and then
-# over the tiles, instead of along the row; a few f32 ulp of a value of
-# magnitude ~10
+# fused vs unfused scores: the logsumexp is summed per column tile (128
+# columns for w4, 64 for w8) and then over the tiles, instead of along the
+# row; a few f32 ulp of a value of magnitude ~10
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_ROWS, MAX_K = 32, 16
-_TILE = 64   # columns per block of csrc/score_topk.cu
 
 
 def topk_rows(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,17 +59,107 @@ def score_topk_ref(h2d: torch.Tensor, qw: dict, k: int):
     return topk_rows(torch.log_softmax(logits, dim=-1), k)
 
 
-# xq, rs, sx, q, scale, stat, cval, cidx, scores, ids | M, K, V, G, k, kind, cast | stream
-_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# ---------------------------------------------------------------------------
+# the w4 kernel's geometry (csrc/score_topk.cu checks every plan against its
+# own): B3/B4's main loop (ring of 4 stages of 32 word rows) over row tiles of
+# 16 or 32 rows and 128 columns, 8 warps a block
+# ---------------------------------------------------------------------------
+
+SCORE_ROW_TILES = (16, 32)
+SCORE_NTILE, SCORE_WARPS = 128, 8
+W8_TILE = 64          # columns per block of the w8 tile kernel
+
+
+class ScorePlan(NamedTuple):
+    """How csrc/score_topk.cu runs one w4 call."""
+
+    bm: int               # rows per block (16 or 32)
+    vec: bool             # 16-byte copies (aligned rows, groups, halves, columns)
+    grid: tuple           # (row tiles, column tiles)
+    smem: int             # dynamic shared memory, bytes
+
+
+def score_plan(M: int, K: int, V: int, G: int) -> ScorePlan:
+    """The launch plan of the w4 scoring kernel, from host-known shapes only:
+    the narrowest row tile that holds all M rows (every block reads the
+    head's words once for all of them), 128 columns a block. Its shared
+    memory holds, one after the other in time, the main loop's ring, the
+    tile's logits and the merge's T tile heads per warp."""
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"score_plan: M={M} rows (1 .. {MAX_ROWS})")
+    bm = next(b for b in SCORE_ROW_TILES if M <= b)
+    T = -(-V // SCORE_NTILE)
+    group = K // G
+    vec = K % 16 == 0 and group % 16 == 0 and (K // 2) % 16 == 0 and V % 4 == 0
+    ring = W4_STAGES * (bm * (4 * W4_STAGE_ROWS + 16) + bm * 4 + SCORE_NTILE * 4
+                        + W4_STAGE_ROWS * (SCORE_NTILE + 8) * 4)
+    logits = bm * (SCORE_NTILE + 8) * 4
+    heads = SCORE_WARPS * T * 8
+    return ScorePlan(bm, vec, (-(-M // bm), T), max(ring, logits, heads))
+
+
+# CUDA stream -> the w4 kernel's merge counters (one per row tile), zero
+_COUNTERS: dict = {}
+
+# xq, rs, sx, q4, scale, ws, counters, scores, ids | M, K, V, G, k, cast |
+# plan (bm, vec, smem, row tiles, column tiles) | stream
+_W4_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# xq, sx, q8, scale, ws, scores, ids | M, K, V, k, cast | stream
+_W8_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _CAST = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def w4_score_kernel(xq: torch.Tensor, sx: torch.Tensor, rs: torch.Tensor,
+                    q4: torch.Tensor, scale: torch.Tensor, k: int, cast: int):
+    """Launch the w4 kernel on quantized rows (int8 xq [M, K], f32 sx [M, 1],
+    int32 rs [M, G]) as `score_plan` plans it: (scores [M, k] f32, ids
+    [M, k] int64). Counts the launch."""
+    M, K = xq.shape
+    V, G = q4.shape[-1], rs.shape[1]
+    p = score_plan(M, K, V, G)
+    if p.smem > W4_SMEM_MAX:
+        raise ValueError(f"score_topk_quant: V={V} needs {p.smem} B of shared memory")
+    dev = xq.device
+    T = p.grid[1]
+    ws = torch.empty(M * T * (2 + 2 * k), dtype=torch.int32, device=dev)
+    counters = _launch.zeroed_counters(_COUNTERS, torch.cuda.current_stream(dev), p.grid[0])
+    scores = torch.empty((M, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((M, k), dtype=torch.int64, device=dev)
+    fn = _launch.entry_point("score_topk", _W4_ARGS)
+    err = fn(xq.data_ptr(), rs.data_ptr(), sx.data_ptr(), q4.data_ptr(), scale.data_ptr(),
+             ws.data_ptr(), counters.data_ptr(), scores.data_ptr(), ids.data_ptr(),
+             M, K, V, G, k, cast, p.bm, int(p.vec), p.smem, *p.grid, _launch.stream())
+    _launch.check_launch("score_topk_quant", err)
+    _launch.LAUNCHES["score_topk_quant"] += 1
+    return scores, ids
+
+
+def _w8_score(h2d: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, k: int):
+    M, K = h2d.shape
+    V = q8.shape[-1]
+    dev = h2d.device
+    xq, sx = quantize_rows(h2d)
+    xq = xq.contiguous()
+    T = -(-V // W8_TILE)
+    ws = torch.empty(M * T * (2 + 2 * k), dtype=torch.int32, device=dev)
+    scores = torch.empty((M, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((M, k), dtype=torch.int64, device=dev)
+    fn = _launch.entry_point("score_topk", _W8_ARGS, "score_topk_w8_launch")
+    err = fn(xq.data_ptr(), sx.data_ptr(), q8.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+             scores.data_ptr(), ids.data_ptr(), M, K, V, k, _CAST[h2d.dtype],
+             _launch.stream())
+    _launch.check_launch("score_topk_quant", err)
+    _launch.LAUNCHES["score_topk_quant"] += 1
+    return scores, ids
 
 
 def score_topk_quant(h2d: torch.Tensor, qw: dict, k: int):
     """[M, K] float rows x quantized lm_head -> (log-softmax top-k scores
-    [M, k] f32, ids [M, k] int64). CUDA tensors run csrc/score_topk.cu; CPU
-    tensors run `score_topk_ref`. The rows are quantized in plain torch (the
-    one rule, ops/quant.quantize_rows); the kernel rounds its logits through
-    h2d's dtype as the unfused chain does."""
+    [M, k] f32, ids [M, k] int64). CUDA tensors run csrc/score_topk.cu (one
+    launch for int4, two for int8); CPU tensors run `score_topk_ref`. The
+    rows are quantized in plain torch (the one rule, ops/quant.quantize_rows);
+    the kernel rounds its logits through h2d's dtype as the unfused chain
+    does."""
     if h2d.device.type == "cpu":
         return score_topk_ref(h2d, qw, k)
     name = "score_topk_quant"
@@ -88,29 +182,10 @@ def score_topk_quant(h2d: torch.Tensor, qw: dict, k: int):
         raise ValueError(f"{name}: rows have K={K}, the head {tuple(q.shape)}")
     if not (1 <= M <= MAX_ROWS and 1 <= k <= min(MAX_K, V)):
         raise ValueError(f"{name}: M={M} (<= {MAX_ROWS}), k={k} (<= {MAX_K}, <= V={V})")
-    dev = h2d.device
-    xq, sx = quantize_rows(h2d)
-    xq = xq.contiguous()
-    if kind == "w4":
-        G = scale.shape[0]
-        if K % G or (K // G) % 4 or (K // 2) % (K // G):
-            raise ValueError(f"{name}: K={K} does not fit {G} scale groups")
-        rs = _rowsums8(xq, G).contiguous()
-        rs_ptr = rs.data_ptr()
-    else:
-        G, rs_ptr = 1, None
-    T = -(-V // _TILE)
-    stat = torch.empty((M, T, 2), dtype=torch.float32, device=dev)
-    cval = torch.empty((M, T, k), dtype=torch.float32, device=dev)
-    cidx = torch.empty((M, T, k), dtype=torch.int32, device=dev)
-    scores = torch.empty((M, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((M, k), dtype=torch.int32, device=dev)
-    sx = sx.reshape(M).contiguous()
-    fn = _launch.entry_point("score_topk", _ARGS)
-    err = fn(xq.data_ptr(), rs_ptr, sx.data_ptr(), q.data_ptr(), scale.data_ptr(),
-             stat.data_ptr(), cval.data_ptr(), cidx.data_ptr(), scores.data_ptr(),
-             ids.data_ptr(), M, K, V, G, k, 0 if kind == "w4" else 1,
-             _CAST[h2d.dtype], _launch.stream())
-    _launch.check_launch(name, err)
-    _launch.LAUNCHES[name] += 1
-    return scores, ids.to(torch.long)
+    if kind == "w8":
+        return _w8_score(h2d, q, scale, k)
+    G = scale.shape[0]
+    if K % G or (K // G) % 4 or (K // 2) % (K // G):
+        raise ValueError(f"{name}: K={K} does not fit {G} scale groups")
+    xq, sx, rs = quantize_for_w4(h2d, G)
+    return w4_score_kernel(xq, sx, rs, q, scale, k, _CAST[h2d.dtype])

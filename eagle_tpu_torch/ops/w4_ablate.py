@@ -3,7 +3,7 @@ PyTorch versions.
 
 `ablate(mode, ...)` (csrc/w4_ablate.cu) replaces the Pallas kernel
 tools/probe_w4_ablate.py:make_kernel: the `__dp4a` w4a8 body (csrc/w4_dot.cuh,
-which B5 still runs; B3/B4 now run on tensor cores) taken apart into nine
+the first body; B3/B4 and B5 now run on tensor cores) taken apart into nine
 variants that stream the same packed bytes and differ in the work they do
 on them, so that timing them tells the cost of the nibble unpack, of the
 per-group dots, of the storage format and of the f32 scale accumulation

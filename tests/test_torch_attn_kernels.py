@@ -177,6 +177,42 @@ def test_compact_matches_jax(start, path, alen):
                                           np.asarray(j)[..., start + 8:, :])
 
 
+def _compact_moving_rows_only(k, v, path, start):
+    """csrc/compact_rows.cu's rule in plain torch: a row whose clamped source
+    is its clamped destination is neither read nor written, every other row
+    is read before any is written."""
+    S, P = k.shape[3], len(path)
+    dst0 = min(max(start, 0), S - P)
+    moves = [(min(max(start + p, 0), S - 1), dst0 + i) for i, p in enumerate(path)]
+    moves = [(s, d) for s, d in moves if s != d]
+    for x in (k, v):
+        rows = [x[:, :, :, s].clone() for s, _ in moves]
+        for (_, d), r in zip(moves, rows):
+            x[:, :, :, d] = r
+    return len(moves)
+
+
+@pytest.mark.parametrize("start,path,moved", [
+    (20, [0, 3, 7, 7, 7, 7, 7], 6),
+    (20, [0, 1, 2, 3, 4, 5, 6], 0),     # all identity
+    (20, [0, 1, 2, 5, 9, 12, 14], 4),   # an identity prefix, then moves
+    (20, [0], 0), (20, [5], 1),         # P = 1
+    (60, [0, 3, 7, 7, 7, 7, 7], 6),     # the window clamps at the end (S = 64)
+    (62, [0, 1, 2, 3, 4, 5, 6], 6),
+    (-3, [0, 1, 2, 3], 3),              # and at the start
+])
+def test_compact_skipping_rows_in_place_is_exact(start, path, moved):
+    """Leaving out the rows that are already in place gives the plain
+    version's bytes, clamped windows included."""
+    rng = np.random.default_rng(7)
+    k = t(rng.normal(size=(2, 1, 2, 64, 8)).astype(np.float32))
+    v = t(rng.normal(size=(2, 1, 2, 64, 8)).astype(np.float32))
+    k2, v2 = k.clone(), v.clone()
+    assert _compact_moving_rows_only(k, v, path, start) == moved
+    ak.compact_rows(k2, v2, torch.tensor(path), torch.tensor(start))
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
 def test_wrappers_refuse_non_cuda_devices():
     """Tensors that are neither on the CPU nor on a CUDA device cannot take
     the plain path: the wrappers raise instead of falling back."""
@@ -211,7 +247,7 @@ def test_cuda_sources_present_and_named():
     assert _build.SOURCES == ("tree_attention", "compact_rows", "w4_matmul",
                               "score_topk", "w4_ablate")
     headers = sorted(n for n in os.listdir(_build.CSRC_DIR) if n.endswith(".cuh"))
-    assert headers == ["ptx.cuh", "w4_dot.cuh"]
+    assert headers == ["ptx.cuh", "w4_dot.cuh", "w4_mma.cuh"]
     for name in _build.SOURCES:
         path = os.path.join(_build.CSRC_DIR, name + ".cu")
         src = open(path).read()
@@ -221,3 +257,10 @@ def test_cuda_sources_present_and_named():
                 else "Replaces: eagle_tpu/ops/") in src
     assert 'extern "C" int w4_matmul_stacked_launch(' in open(
         os.path.join(_build.CSRC_DIR, "w4_matmul.cu")).read()
+    assert 'extern "C" int score_topk_w8_launch(' in open(
+        os.path.join(_build.CSRC_DIR, "score_topk.cu")).read()
+    # B3/B4 and B5 share one main loop; only B6 still runs the dp4a body
+    for name in ("w4_matmul", "score_topk"):
+        src = open(os.path.join(_build.CSRC_DIR, name + ".cu")).read()
+        assert '#include "w4_mma.cuh"' in src and "w4_dot.cuh\"" not in src
+    assert '#include "w4_dot.cuh"' in open(os.path.join(_build.CSRC_DIR, "w4_ablate.cu")).read()

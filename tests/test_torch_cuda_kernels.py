@@ -134,6 +134,50 @@ def test_compact_rows_kernel(dev):
     assert torch.equal(k, k2) and torch.equal(v, v2)
 
 
+# the overlapping path at three starts (the last clamps the window at the
+# end of the cache), an all-identity path, an identity prefix followed by
+# moves, P = 1 (in place and moving)
+@pytest.mark.parametrize("path,start", [
+    ([0, 3, 7, 7, 7, 7, 7], 0), ([0, 3, 7, 7, 7, 7, 7], 1000),
+    ([0, 3, 7, 7, 7, 7, 7], 2173), (list(range(7)), 1000),
+    ([0, 1, 2, 5, 9, 12, 14], 1000), ([0], 1000), ([4], 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_compact_rows_kernel_paths(dev, path, start, dtype):
+    """Bit-identical to compact_rows_plain, every row of the cache included."""
+    g = torch.Generator(device=dev).manual_seed(start)
+    k = torch.randn((32, 1, 8, 2176, 128), generator=g, device=dev).to(dtype)
+    v = torch.randn_like(k)
+    pt, st = torch.tensor(path, device=dev), torch.tensor(start, device=dev)
+    k2, v2 = k.clone(), v.clone()
+    before = ak.LAUNCHES["compact_rows"]
+    ak.compact_rows(k, v, pt, st)
+    compact_rows_plain(k2, v2, pt, st)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    assert ak.LAUNCHES["compact_rows"] == before + 1
+
+
+def test_compact_rows_kernel_row_sliced_view(dev):
+    """A view of the first 1024 rows (kv_buckets) moves the same rows as the
+    full cache and touches nothing past the view."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = torch.randn((32, 1, 8, 2176, 128), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    path, st = torch.tensor([0, 3, 7, 7, 7, 7, 7], device=dev), torch.tensor(700, device=dev)
+    k2, v2 = k.clone(), v.clone()
+    ak.compact_rows(k[:, :, :, :1024], v[:, :, :, :1024], path, st)
+    compact_rows_plain(k2, v2, path, st)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+def test_compact_rows_kernel_refuses_what_it_cannot_take(dev):
+    k = torch.zeros((2, 1, 2, 64, 4), dtype=torch.bfloat16, device=dev)   # 8-byte rows
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ak.compact_rows(k, k.clone(), torch.zeros(3, dtype=torch.long, device=dev), 2)
+    big = torch.zeros((1, 1, 1, 4096, 128), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="at most"):    # 65 rows of 512 bytes
+        ak.compact_rows(big, big.clone(), torch.arange(65, device=dev), 0)
+
+
 # ---------------------------------------------------------------------------
 # B3 / B4: w4a8 matmul, bit-identical to qdense4_ref
 # ---------------------------------------------------------------------------
@@ -294,6 +338,92 @@ def test_score_topk_kernel_forced_ties(dev, kind):
     _, ref_ids = stk.score_topk_ref(h, qw, k)
     assert torch.equal(ids, ref_ids)
     assert ids[0].tolist() == [7, 63, 64, 450, 900, 300]
+
+
+# the w4 kernel at every row tile edge (16 / 32 rows), at V a multiple of
+# its 128-column tile and not, at groups of 128 and shorter ones (a group of
+# 8 takes the 4-byte copies, as does V = 130)
+@pytest.mark.parametrize("M", [1, 2, 10, 16, 17, 32])
+@pytest.mark.parametrize("K,V,group", [
+    (4096, 32000, 128), (4096, 1000, 128), (256, 1000, 16), (64, 130, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_score_topk_w4_kernel_shapes(dev, M, K, V, group, dtype):
+    g = torch.Generator(device=dev).manual_seed(V + M + K)
+    h = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    qw = tq4.pack_w4(torch.randn((K, V), generator=g, device=dev) * 0.05, group)
+    before = _launch.LAUNCHES["score_topk_quant"]
+    lp, ids = stk.score_topk_quant(h, qw, 10)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["score_topk_quant"] == before + 1
+    assert ids.dtype == torch.int64 and lp.shape == ids.shape == (M, 10)
+    ref_lp, ref_ids = stk.score_topk_ref(h, qw, 10)
+    assert torch.equal(ids, ref_ids)
+    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+def test_score_topk_kernel_ties_across_the_vocabulary(dev, kind):
+    """Equal logits in one tile and in far-apart tiles at V = 32000 resolve
+    by ascending index: the merge keeps the tiles whose heads lead and then
+    their candidates, and loses none of the ties."""
+    M, K, V, k = 2, 256, 32000, 10
+    h = torch.ones((M, K), device=dev)
+    w = torch.zeros((K, V), device=dev)
+    for c in (31999, 5, 12800, 6, 127, 128, 7):
+        w[:, c] = 0.5
+    w[:, 300] = 0.25
+    qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+    _, ids = stk.score_topk_quant(h, qw, k)
+    _, ref_ids = stk.score_topk_ref(h, qw, k)
+    assert torch.equal(ids, ref_ids)
+    assert ids[0].tolist() == [5, 6, 7, 127, 128, 12800, 31999, 300, 0, 1]
+
+
+def test_score_topk_merge_counters_left_zero(dev):
+    """The w4 kernel's merge counters are zero after a launch, and after two
+    launches on two streams, each with a buffer of its own."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    qw = tq4.pack_w4(torch.randn((4096, 32000), generator=g, device=dev) * 0.05)
+    h = torch.randn((10, 4096), generator=g, device=dev).to(torch.bfloat16)
+    ref = stk.score_topk_ref(h, qw, 10)
+    stk.score_topk_quant(h, qw, 10)
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in stk._COUNTERS.values())
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    main_out = stk.score_topk_quant(h, qw, 10)
+    with torch.cuda.stream(side):
+        side_out = stk.score_topk_quant(h, qw, 10)
+    torch.cuda.synchronize()
+    assert {torch.cuda.current_stream(dev), side} <= set(stk._COUNTERS)
+    assert all(int(c.abs().sum()) == 0 for c in stk._COUNTERS.values())
+    for lp, ids in (main_out, side_out):
+        assert torch.equal(ids, ref[1])
+        torch.testing.assert_close(lp, ref[0], **stk.SCORE_TOL)
+
+
+def test_score_topk_kernel_refuses_a_foreign_plan(dev):
+    """The launch checks the plan against its kernel's geometry: a plan with
+    the wrong shared memory or grid is refused and nothing runs."""
+    M, K, V, k = 10, 256, 1000, 10
+    g = torch.Generator(device=dev).manual_seed(2)
+    qw = tq4.pack_w4(torch.randn((K, V), generator=g, device=dev) * 0.05)
+    xq, sx, rs = tq4.quantize_for_w4(torch.randn((M, K), generator=g, device=dev), K // 128)
+    p = stk.score_plan(M, K, V, K // 128)
+    fn = _launch.entry_point("score_topk", stk._W4_ARGS)
+    ws = torch.empty(M * p.grid[1] * (2 + 2 * k), dtype=torch.int32, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((M, k), device=dev), torch.empty((M, k), dtype=torch.int64, device=dev)
+    bad = [(p.bm, p.smem + 16, *p.grid), (p.bm, p.smem, p.grid[0], p.grid[1] + 1),
+           (32 if p.bm == 16 else 16, p.smem, *p.grid), (48, p.smem, *p.grid)]
+    for bm, smem, gm, gn in bad:
+        err = fn(xq.data_ptr(), rs.data_ptr(), sx.data_ptr(), qw["q4"].data_ptr(),
+                 qw["scale"].data_ptr(), ws.data_ptr(), cnt.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), M, K, V, K // 128, k, 0, bm, int(p.vec), smem, gm, gn,
+                 _launch.stream())
+        assert err != 0, (bm, smem, gm, gn)
+    with pytest.raises(ValueError, match="M=33"):
+        stk.score_topk_quant(torch.zeros((33, K), device=dev), qw, k)
 
 
 def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):

@@ -100,3 +100,103 @@ def test_score_topk_quant_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         tstk.score_topk_quant(torch.empty((2, 64), device="meta"), meta, 4)
     assert _launch.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the w4 kernel's plan and its tile-then-merge arithmetic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,V,G", [
+    (1, 4096, 32000, 32), (2, 4096, 32000, 32), (10, 4096, 32000, 32),
+    (16, 4096, 32000, 32), (17, 4096, 32000, 32), (32, 4096, 128256, 32),
+    (3, 64, 9, 2), (7, 256, 1000, 16), (1, 64, 70, 8), (32, 512, 130, 16)])
+def test_score_plan_covers_every_column_once(M, K, V, G):
+    """The plan's column tiles cover [0, V) once and its grid matches them;
+    one row tile holds all M rows; shared memory holds the ring, the logits
+    tile and the merge's heads, within the card's 227 KB; the merge's
+    candidates fit its 8 per lane at every k."""
+    p = tstk.score_plan(M, K, V, G)
+    nt = tstk.SCORE_NTILE
+    assert p.bm == min(b for b in tstk.SCORE_ROW_TILES if b >= M)
+    assert p.grid[0] == 1 and p.grid[0] * p.bm >= M
+    T = p.grid[1]
+    cols = [c for t in range(T) for c in range(t * nt, min((t + 1) * nt, V))]
+    assert cols == list(range(V)) and (T - 1) * nt < V
+    ring = tq4.W4_STAGES * (p.bm * (4 * tq4.W4_STAGE_ROWS + 16) + p.bm * 4 + nt * 4
+                            + tq4.W4_STAGE_ROWS * (nt + 8) * 4)
+    assert p.smem == max(ring, p.bm * (nt + 8) * 4, tstk.SCORE_WARPS * T * 8)
+    assert p.smem <= tq4.W4_SMEM_MAX
+    group = K // G
+    assert p.vec == (K % 16 == 0 and group % 16 == 0 and V % 4 == 0)
+    assert all(min(k, T) * k <= 8 * 32 for k in range(1, tstk.MAX_K + 1))
+
+
+def test_score_plan_refuses_what_the_kernel_does_not_take():
+    for M in (0, tstk.MAX_ROWS + 1):
+        with pytest.raises(ValueError, match="rows"):
+            tstk.score_plan(M, 4096, 32000, 32)
+
+
+def _ordered(vals, idx):
+    """(value desc, index asc) order of 1-D candidates: a stable sort by
+    index, then a stable descending sort by value."""
+    o = torch.sort(idx, stable=True)[1]
+    o = o[torch.sort(vals[o], descending=True, stable=True)[1]]
+    return vals[o], idx[o]
+
+
+def _tile_merge(logits, k, nt):
+    """The w4 kernel's arithmetic in plain f32 torch: per column tile its
+    max, sum of exp and k best; then the global max and rescaled sum (per
+    lane of the merging warp, then across the lanes), the min(k, T) tiles
+    whose best candidates lead, and the k best of their candidates."""
+    M, V = logits.shape
+    T = -(-V // nt)
+    big = 2**31 - 1
+    pad = torch.full((M, T * nt), float("-inf"))
+    pad[:, :V] = logits
+    tiles = pad.reshape(M, T, nt)
+    cols = torch.arange(T * nt).reshape(T, nt)
+    cols = torch.where(cols < V, cols, torch.tensor(big))
+    tmax = tiles.amax(-1)
+    tsum = torch.exp(tiles - tmax[..., None]).sum(-1)
+    scores, ids = [], []
+    for m in range(M):
+        heads, lists = [], []
+        for t in range(T):
+            v, i = _ordered(tiles[m, t], cols[t])
+            lists.append((v[:k], i[:k]))
+            heads.append((v[0], i[0]))
+        # lane l of the merging warp: tiles l, l + 32, .. in one chunk, its
+        # sum rescaled to the chunk's max; then across the lanes
+        lm, ls = torch.full((32,), float("-inf")), torch.zeros(32)
+        for l in range(min(32, T)):
+            tm, ts = tmax[m, l::32], tsum[m, l::32]
+            lm[l] = tm.max()
+            ls[l] = (ts * torch.exp(tm - lm[l])).sum()
+        gmax = lm.max()
+        lse = gmax + torch.log((ls * torch.exp(lm - gmax)).sum())
+        hv, hi = _ordered(torch.stack([h[0] for h in heads]), torch.stack([h[1] for h in heads]))
+        chosen = [int(i) // nt for i in hi[:min(k, T)]]
+        v, i = _ordered(torch.cat([lists[t][0] for t in chosen]),
+                        torch.cat([lists[t][1] for t in chosen]))
+        scores.append(v[:k] - lse)
+        ids.append(i[:k])
+    return torch.stack(scores), torch.stack(ids)
+
+
+@pytest.mark.parametrize("V,k,ties", [
+    (1000, 10, False), (1000, 16, True), (130, 10, True), (9, 4, True),
+    (700, 1, True), (2000, 16, False)])
+def test_tile_merge_arithmetic_matches_jax(V, k, ties):
+    """Tile partials and their pruned merge give the unfused JAX chain's ids
+    exactly and its scores within TOL. `ties` rounds the logits to quarters,
+    so that many equal values sit in one tile and across far-apart tiles."""
+    rng = np.random.default_rng(V + k)
+    x = (rng.normal(size=(3, V)) * 2).astype(np.float32)
+    if ties:
+        x = np.round(x * 4) / 4
+    lp, ids = _tile_merge(t(x), k, tstk.SCORE_NTILE)
+    jlp, jids = jdrafter.topk_rows(jax.nn.log_softmax(jnp.asarray(x), axis=-1), k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), **TOL)
