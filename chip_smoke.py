@@ -7,24 +7,30 @@ Phases (any failure exits non-zero):
      kernels from eagle_tpu_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card at its
      path's shapes (tree attention within a stated tolerance, also at the
-     static tree's T = 26 and at start one below, on and one above every
-     prefix chunk edge of a 1024-row cache view; compaction exactly, on the
-     overlapping path, an identity path, an identity prefix with moves,
-     P = 1, a window clamped at the cache's end and a row-sliced view; the
-     w4a8 matmuls bit for bit and invariant in the number of rows, at every
-     M edge of their tiles, group size and blocked layout, and at shapes
-     that make ops/quant4.w4_plan pick each kernel instantiation; the
-     fused scorer with identical ids at M = 1, 10, 17, 32; the nine ablation
-     variants of the w4a8 body bit for bit at the probe's shape), and time
-     kernel / plain / library call / bound, with the kernel/library ratios
-     (the fused scorer: wrapper, kernel alone and the unfused chain the
-     drafter runs without fused scoring, at M = 1 and 10);
+     static tree's T = 26, at head_dim 64 and at start one below, on and one
+     above every prefix chunk edge of a 1024-row cache view; compaction
+     exactly, on the overlapping path, an identity path, an identity prefix
+     with moves, P = 1, a window clamped at the cache's end, a row-sliced
+     view and 128-byte rows; the w4a8 matmuls bit for bit and invariant in
+     the number of rows, at every M edge of their tiles, group size and
+     blocked layout, and at shapes that make ops/quant4.w4_plan pick each
+     kernel instantiation; the fused scorer with identical ids at M = 1, 10,
+     17, 32, and at M = 33, 64 with k = 17, 32, 128, random and tied, w4 and
+     w8; the nine ablation variants of the w4a8 body bit for bit at M = 5,
+     32, 61, 512, every block_n of the probe's sweeps, groups 4 to 1024 and
+     a ragged N, `i32_storage` against B3's kernel alone), and time kernel /
+     plain / library call / bound, with the kernel/library ratios (the fused
+     scorer: wrapper, kernel alone and the unfused chain the drafter runs
+     without fused scoring, at M = 1, 10, 32 and past them; the ablation
+     variants beside one bf16 torch.mm at M = 32, 61 and 512);
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
      dense target, for an int4 target + int4 draft + fused scoring, for an
      int8 draft + fused scoring, for a static-tree engine, for kv_buckets
-     across a bucket edge and for an int8 KV cache; generate_stream ends on
-     generate_fused's ids;
+     across a bucket edge, for an int8 KV cache and for a head_dim-64
+     target; generate_stream ends on generate_fused's ids; with two logits
+     one ulp apart in every row; generate_vanilla(max_new_tokens=0) returns
+     the prompt;
   4. the paths at full width (Llama-3.1-8B widths, EAGLE-3 draft, seeded
      random weights made on the card): (a) the bf16 path answers one request
      with generate_fused; (b) over the same weights, the static-tree +
@@ -32,9 +38,10 @@ Phases (any failure exits non-zero):
      through generate_fused, the int8-KV engine answers one (and launches
      neither attention-side kernel), and calibrate_total_tokens times the
      target; (c) the int4 serving path (w4a8 target, int4 draft, fused draft
-     scoring) answers two requests; (d) the ablation probe runs its `all`
-     sweep with short chains. (a) and (c) then run the vanilla baseline and
-     a forced replay of its trajectory. Every path starts with the launch
+     scoring) answers two requests; (d) the Llama-3.2-1B-class path at
+     head_dim 64 (full_width.engine_hd64, bf16) answers two requests; (e) the
+     ablation probe runs its `all` sweep with short chains. (a), (c) and (d)
+     then run the vanilla baseline and a forced replay of its trajectory. Every path starts with the launch
      counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}; the run's own wall time goes to stderr.
@@ -45,6 +52,7 @@ Exits non-zero without a result when CUDA is unavailable.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +88,7 @@ FP32_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 kernel vs plain: order of sums on
 BF16_TOL_F32 = dict(rtol=2.0 ** -8, atol=1e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 T_TREE, NQ, NKV, HD, S_CACHE = 61, 32, 8, 128, 2176   # slice shapes (layer view)
+HD64 = 64                                             # the hd64 path's head_dim
 L_TGT, PATH = 32, [0, 3, 7, 7, 7, 7, 7]
 T_STATIC = len(MC_SIM_7B_63) + 1                      # the static tree's 26 nodes
 # the kernels an engine can launch (the w4_ablate variants belong to the probe)
@@ -126,11 +135,11 @@ def check_tree_attention(dev, flush) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def inputs(T, Tk, nq, nkv, S, dtype, mask=None):
+    def inputs(T, Tk, nq, nkv, S, dtype, mask=None, hd=HD):
         r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
         tm = rand_tree_mask(T, rng, dev) if mask is None else mask
-        return (r(T, nq, HD), r(nkv, S, HD), r(nkv, S, HD), r(Tk, nkv, HD),
-                r(Tk, nkv, HD), tm)
+        return (r(T, nq, hd), r(nkv, S, hd), r(nkv, S, hd), r(Tk, nkv, hd),
+                r(Tk, nkv, hd), tm)
 
     worst_bf16 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -211,13 +220,37 @@ def check_tree_attention(dev, flush) -> dict:
         torch.testing.assert_close(got, ref, **BF16_TOL)
     log(f"[B1] odd shape g=1 T=13 Tk=40 bf16, start 0 / 77 / 128 / 256: within {BF16_TOL}")
 
+    # head_dim 64 (the hd64 path's Llama-3.2-1B-class layout, 32 q / 8 kv
+    # heads): every chunk edge of a 1024-row view and the full cache
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        used = 0.0
+        for T, mask in ((T_STATIC, sm), (T_TREE, None)):
+            q, kc, vc, kt, vt, tm = inputs(T, T, NQ, NKV, S_CACHE, dtype, mask=mask, hd=HD64)
+            for view, sts in ((1024, starts), (S_CACHE, [1500, S_CACHE])):
+                args = (q, kc[:, :view], vc[:, :view], kt, vt, tm)
+                for start in sts:
+                    st = torch.tensor(start, device=dev)
+                    got, ref = ak.tree_attention(*args, st), ak.tree_attention_ref(*args, st)
+                    torch.testing.assert_close(got, ref, **tol)
+                    used = max(used, tol_used(got, ref, tol))
+                    if dtype == torch.bfloat16:
+                        ref32 = ak.tree_attention_ref(
+                            *(a.float() if a.is_floating_point() else a for a in args), st)
+                        torch.testing.assert_close(got.float(), ref32, **BF16_TOL_F32)
+                        used = max(used, tol_used(got, ref32, BF16_TOL_F32))
+                        worst_bf16 = max(worst_bf16, max_err(got, ref))
+        log(f"[B1] head_dim {HD64} {dtype}: every chunk edge of a 1024-row view and the "
+            f"full cache, T = {T_STATIC} and {T_TREE}: within {tol}"
+            + (f" and {BF16_TOL_F32} vs plain f32" if dtype == torch.bfloat16 else "")
+            + f"; at most {used:.3f} of a limit used")
+
     # timing at the main path's shape (bf16, start = 1024) and at the static
     # tree's T = 26, against one SDPA call over the same keys
     start = 1024
     st = torch.tensor([start], dtype=torch.int32, device=dev)  # as the kernel reads it
     res = {}
-    for T in (T_TREE, T_STATIC):
-        args = inputs(T, T, NQ, NKV, S_CACHE, torch.bfloat16)
+    for T, hd in ((T_TREE, HD), (T_STATIC, HD), (T_TREE, HD64)):
+        args = inputs(T, T, NQ, NKV, S_CACHE, torch.bfloat16, hd=hd)
         q, kc, vc, kt, vt, tm = args
         ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
         plain_ms = device_time_ms(lambda: ak.tree_attention_ref(*args, st), flush=flush)
@@ -227,29 +260,28 @@ def check_tree_attention(dev, flush) -> dict:
         qs = q.transpose(0, 1)[None]
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, kcat, vcat, attn_mask=lmask[None, None], enable_gqa=True)
-        lib_err = max_err(sdpa()[0].transpose(0, 1).reshape(T, NQ * HD),
+        lib_err = max_err(sdpa()[0].transpose(0, 1).reshape(T, NQ * hd),
                           ak.tree_attention_ref(*args, st))
         library_ms = device_time_ms(sdpa, flush=flush)
         es = 2
-        nbytes = (2 * T * NQ * HD * es + 2 * NKV * start * HD * es
-                  + 2 * T * NKV * HD * es + T * T)
-        flops = 4 * T * NQ * (start + T) * HD
+        nbytes = (2 * T * NQ * hd * es + 2 * NKV * start * hd * es
+                  + 2 * T * NKV * hd * es + T * T)
+        flops = 4 * T * NQ * (start + T) * hd
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S else "operations"
-        log(f"[B1] bf16 T={T} start={start} chunk={ch}: kernel {ms:.4f} ms, "
+        log(f"[B1] bf16 T={T} head_dim={hd} start={start} chunk={ch}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (err vs plain {lib_err:.2e}), "
             f"kernel/sdpa {ms / library_ms:.3f}, bound {bound_ms:.5f} ms "
             f"({bound_by}; {nbytes} B, {flops} flop), kernel/bound {ms / bound_ms:.1f}")
-        res[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
-    r = res[T_TREE]
+        res[T, hd] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ratio=ms / library_ms)
+    r = res[T_TREE, HD]
     return {"name": "tree_attention", "route": "cuda",
             "source": "eagle_tpu_torch/csrc/tree_attention.cu",
             "replaces": "eagle_tpu/ops/pallas_attn.py:32",
-            "max_abs_err": worst_bf16, **r,
-            "library_ratio": r["ms"] / r["library_ms"],
-            "at_T26": {**res[T_STATIC],
-                       "library_ratio": res[T_STATIC]["ms"] / res[T_STATIC]["library_ms"]}}
+            "max_abs_err": worst_bf16, **r, "at_T26": res[T_STATIC, HD],
+            "at_head_dim_64": res[T_TREE, HD64]}
 
 
 def check_compact_rows(dev, flush) -> dict:
@@ -289,29 +321,48 @@ def check_compact_rows(dev, flush) -> dict:
     if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
         fail("compact_rows on a 1024-row view differs from compact_accepted")
     log("[B2] 1024-row view, start=700: identical to compact_accepted (tolerance: exact)")
+    # the hd64 path's cache: 16 layers of 128-byte rows (head_dim 64, bf16)
+    shape64 = (16, 1, NKV, S_CACHE, HD64)
+    k64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
+    v64 = torch.randn(shape64, generator=gen, device=dev).to(torch.bfloat16)
+    for p, start in cases:
+        st, pt = torch.tensor(start, device=dev), torch.tensor(p, device=dev)
+        k1, v1, k2, v2 = k64.clone(), v64.clone(), k64.clone(), v64.clone()
+        ak.compact_rows(k1, v1, pt, st)
+        compact_rows_plain(k2, v2, pt, st)
+        torch.cuda.synchronize()
+        if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+            fail(f"compact_rows 128-byte rows path={p} start={start}: differs")
+    log(f"[B2] 128-byte rows {list(shape64)}: identical to compact_accepted on the "
+        f"{len(cases)} paths above (tolerance: exact)")
+
     st = torch.tensor([1000], dtype=torch.int32, device=dev)  # as the kernel reads them
     path = path.to(torch.int32)
-    k1, v1 = k0.clone(), v0.clone()
-    ms = device_time_ms(lambda: ak.compact_rows(k1, v1, path, st), flush=flush)
-    plain_ms = device_time_ms(lambda: compact_rows_plain(k1, v1, path, st), flush=flush)
-    src = (st + path).long()
-    dst = window(st[0], P, S_CACHE)
+    res = {}
+    for tag, (kk, vv) in (("128", (k0, v0)), ("64", (k64, v64))):
+        k1, v1 = kk.clone(), vv.clone()
+        L, d = k1.shape[0], k1.shape[-1]
+        ms = device_time_ms(lambda: ak.compact_rows(k1, v1, path, st), flush=flush)
+        plain_ms = device_time_ms(lambda: compact_rows_plain(k1, v1, path, st), flush=flush)
+        src = (st + path).long()
+        dst = window(st[0], P, S_CACHE)
 
-    def library():
-        for t in (k1, v1):
-            t[:, 0].index_copy_(2, dst, t[:, 0].index_select(2, src))
+        def library():
+            for t in (k1, v1):
+                t[:, 0].index_copy_(2, dst, t[:, 0].index_select(2, src))
 
-    library_ms = device_time_ms(library, flush=flush)
-    nbytes = 2 * 2 * L_TGT * NKV * P * HD * 2 + 4 * P
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[B2] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select+index_copy_ "
-        f"{library_ms:.4f} ms, kernel/library {ms / library_ms:.3f}, bound {bound_ms:.5f} ms "
-        f"({nbytes} B)")
+        library_ms = device_time_ms(library, flush=flush)
+        nbytes = 2 * 2 * L * NKV * P * d * 2 + 4 * P
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[B2] {list(k1.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_select+index_copy_ {library_ms:.4f} ms, kernel/library "
+            f"{ms / library_ms:.3f}, bound {bound_ms:.5f} ms ({nbytes} B)")
+        res[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                        library_ms=library_ms)
     return {"name": "compact_rows", "route": "cuda",
             "source": "eagle_tpu_torch/csrc/compact_rows.cu",
             "replaces": "eagle_tpu/ops/pallas_attn.py:187",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+            "max_abs_err": worst, **res["128"], "at_128B_rows": res["64"]}
 
 
 
@@ -552,13 +603,39 @@ def check_score_topk(dev, flush) -> dict:
             f"bf16 rows, forced ties in index order; scores max abs err so far "
             f"{worst:.3e} (tolerance {stk.SCORE_TOL})")
 
-    def unfused(h, qw):
+    # past 32 rows (row tiles on the grid) and past k = 16 (the k-way merge),
+    # w4 and w8, random rows and heavy ties (weights on three levels, half the
+    # rows constant: equal logits within a tile and across tiles)
+    for kind in ("w4", "w8"):
+        tw = torch.randint(-1, 2, (K, V), generator=gen, device=dev).float().mul_(0.05)
+        tied = tq4.pack_w4(tw) if kind == "w4" else tq.quantize_linear(tw)
+        for M in (33, 64):
+            for kk in (17, 32, 128):
+                for qw, ties in ((heads[kind], False), (tied, True)):
+                    h = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                    if ties:
+                        h[::2] = 1.0
+                    lp, ids = stk.score_topk_quant(h, qw, kk)
+                    ref_lp, ref_ids = stk.score_topk_ref(h, qw, kk)
+                    torch.cuda.synchronize()
+                    if not torch.equal(ids, ref_ids):
+                        fail(f"[B5] {kind} M={M} k={kk} ties={ties}: ids differ from "
+                             f"score_topk_ref")
+                    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+                    worst = max(worst, max_err(lp, ref_lp))
+        log(f"[B5] {kind}: ids identical at M = 33, 64 x k = 17, 32, 128, random and "
+            f"tied logits; scores max abs err so far {worst:.3e} (tolerance "
+            f"{stk.SCORE_TOL})")
+
+    def unfused(h, qw, kk=k):
         # what drafter.score_topk runs with fuse_scoring=False: B3, the cast,
         # log_softmax and the stable top-k
-        return stk.topk_rows(torch.log_softmax(tq4.qdense4(h, qw).to(torch.float32), dim=-1), k)
+        return stk.topk_rows(torch.log_softmax(tq4.qdense4(h, qw).to(torch.float32), dim=-1),
+                             kk)
 
     res = {}
-    for kind, M in (("w8", 10), ("w4", 1), ("w4", 10)):
+    for kind, M, k in (("w8", 10, 10), ("w4", 1, 10), ("w4", 10, 10), ("w4", 32, 16),
+                       ("w4", 64, 32), ("w4", 10, 128)):
         qw = heads[kind]
         h = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         ms = device_time_ms(lambda: stk.score_topk_quant(h, qw, k), flush=flush)
@@ -578,8 +655,8 @@ def check_score_topk(dev, flush) -> dict:
         xq, sx, rs = tq4.quantize_for_w4(h, K // 128)
         kernel_ms = device_time_ms(lambda: stk.w4_score_kernel(
             xq, sx, rs, qw["q4"], qw["scale"], k, 1), flush=flush)
-        unfused_ms = device_time_ms(lambda: unfused(h, qw), flush=flush)
-        u_lp, u_ids = unfused(h, qw)
+        unfused_ms = device_time_ms(lambda: unfused(h, qw, k), flush=flush)
+        u_lp, u_ids = unfused(h, qw, k)
         lp, ids = stk.score_topk_quant(h, qw, k)
         torch.cuda.synchronize()
         if not torch.equal(ids, u_ids):
@@ -589,30 +666,34 @@ def check_score_topk(dev, flush) -> dict:
             f"one kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, unfused chain "
             f"(qdense4, cast, log_softmax, topk_rows) {unfused_ms:.4f} ms, wrapper/unfused "
             f"{ms / unfused_ms:.3f}, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by}; {nbytes} B); {stk.score_plan(M, K, V, K // 128)}")
-        res[M] = dict(r, kernel_ms=kernel_ms, unfused_ms=unfused_ms)
+            f"({bound_by}; {nbytes} B); {stk.score_plan(M, K, V, K // 128, k)}")
+        res[M, k] = dict(r, kernel_ms=kernel_ms, unfused_ms=unfused_ms)
     return {"name": "score_topk_quant", "route": "cuda",
             "source": "eagle_tpu_torch/csrc/score_topk.cu",
             "replaces": "eagle_tpu/ops/score_topk.py:238", "max_abs_err": worst,
-            **res[10], "library_ms": None,
+            **res[10, 10], "library_ms": None,
             "library_note": "no one PyTorch call computes this function; unfused_ms is "
                             "the drafter's unfused chain (qdense4, cast, log_softmax, "
                             "topk_rows)",
-            "shape": f"w4 [10,{K}]x[{K},{V}] k={k} bf16 rows",
-            "at_M1": res[1], "w8": res["w8"]}
+            "shape": f"w4 [10,{K}]x[{K},{V}] k=10 bf16 rows",
+            "at_M1": res[1, 10], "at_M32_k16": res[32, 16], "at_M64_k32": res[64, 32],
+            "at_M10_k128": res[10, 128], "w8": res["w8"]}
 
 
 def check_w4_ablate(dev, flush) -> list[dict]:
-    """B6: every variant of the w4a8 body against ablate_ref, bit for bit
-    (tolerance: none; every kernel keeps its plain version's sum order), at
-    the probe's shapes [32, 4096] x [4096, 4096] and [512, 4096] x [4096, 4096],
-    group 128, at every block_n a sweep gives the mode, and at ragged and odd
-    launch shapes. One timed entry per mode."""
+    """B6: every variant of the w4a8 body (each a change of B3's main loop)
+    against ablate_ref, bit for bit (tolerance: none; every kernel keeps its
+    plain version's sum order), at M = 5, 32, 61 and 512 against [4096, 4096]
+    weights, at every block_n the probe's sweeps use and at ablate_plan's
+    tile, at groups of 4, 128, 256, 512 and 1024 and a ragged N = 200.
+    `i32_storage` at the plan's tile is held to B3's kernel alone, bit for
+    bit and in time. One timed entry per mode (M = 32, also M = 61 and 512),
+    beside one bf16 torch.mm of the same shape."""
     K, N, group = probe_w4_ablate.K, probe_w4_ablate.N, probe_w4_ablate.GROUP
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
 
-    def case(mode, M, group=group, N=N):
+    def case(mode, M, group=group, N=N, K=K):
         G = K // group
         xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=gen, device=dev)
         rs = (8 * xq.reshape(M, G, group).sum(dim=2, dtype=torch.int32)).contiguous()
@@ -624,6 +705,9 @@ def check_w4_ablate(dev, flush) -> list[dict]:
                               device=dev)
         s = torch.rand((G, N), generator=gen, device=dev) * 1e-3 + 5e-4
         return xq, rs, p, s
+
+    def tile(mode, M, K=K, N=N, group=group):
+        return wab.ablate_plan(mode, M, K, N, K // group, 128).ntile
 
     worst = {}
 
@@ -637,42 +721,64 @@ def check_w4_ablate(dev, flush) -> list[dict]:
             fail(f"[B6] {mode} {tag}: differs from ablate_ref, max abs {err:.3e} "
                  f"(tolerance: bit-identical), mean |ref| {float(ref.abs().mean()):.3e}")
 
+    sweep_bns = sorted({bn for runs in probe_w4_ablate.SWEEPS.values() for _, _, bn in runs})
     for mode in wab.MODES:
         args = case(mode, 32)
-        for bn in (256, 1024, 1536):               # 1536 leaves a ragged last block
+        for bn in sweep_bns + [tile(mode, 32)]:      # 1536 leaves a ragged last block
             same(mode, args, group, bn, f"M=32 bn={bn}")
         same(mode, case(mode, 5), group, 2048, "M=5 bn=2048")
-        # M = 512 at the `all` sweep's block_n and at the m512 sweep's own
+        same(mode, case(mode, 5), group, tile(mode, 5), "M=5 at the plan's tile")
+        same(mode, case(mode, 61), group, tile(mode, 61), "M=61 at the plan's tile")
         args = case(mode, 512)
-        bns = [256] + [bn for m, _, bn in probe_w4_ablate.SWEEPS["m512"] if m == mode]
-        for bn in bns:
+        for bn in (256, tile(mode, 512)):
             same(mode, args, group, bn, f"M=512 bn={bn}")
-        log(f"[B6] {mode:12s}: bit-identical to ablate_ref at M = 5, 32 (block_n 256, "
-            f"1024, 1536, 2048) and M = 512 (block_n {bns}) "
+        for g in (256, 512, 1024):
+            same(mode, case(mode, 32, group=g), g, 512, f"group={g}")
+        same(mode, case(mode, 32, group=4, K=256), 4, 64, "K=256 group=4")
+        same(mode, case(mode, 7, N=200), group, 40, "N=200")
+        log(f"[B6] {mode:12s}: bit-identical to ablate_ref at M = 5, 32, 61, 512, block_n "
+            f"{sweep_bns} and the plan's tile, groups 4, 128, 256, 512, 1024, N = 200 "
             f"(tolerance: exact; max_abs_err {worst[mode]:.1e})")
-    for mode, g in (("full", 1024), ("fused_unpack", 256), ("fused_unpack", 512),
-                    ("no_unpack", 1024), ("batched_dot", 512), ("full", 4)):
-        same(mode, case(mode, 32, group=g), g, 512, f"group={g}")
-    same("fused_unpack", case("fused_unpack", 7, N=200), group, 256, "N=200")
-    log("[B6] groups of 4, 256, 512, 1024 and a ragged N = 200: bit-identical")
 
     out = []
     for mode in wab.MODES:
-        M = 32
-        args = case(mode, M)
-        ms = device_time_ms(lambda: wab.ablate(mode, *args, group, 256), flush=flush)
-        plain_ms = device_time_ms(lambda: wab.ablate_ref(mode, *args, group), reps=5,
-                                  flush=flush)
-        bound_ms, bound_by, nbytes = _ablate_bound(mode, M, K, N, K // group)
-        log(f"[B6] {mode:12s} [{M},{K}]x[{K},{N}] group {group} bn 256: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B)")
-        out.append({"name": f"w4_ablate.{mode}", "route": "cuda",
-                    "source": "eagle_tpu_torch/csrc/w4_ablate.cu",
-                    "replaces": "tools/probe_w4_ablate.py:37", "max_abs_err": worst[mode],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "library_note": "no one PyTorch call computes this function",
-                    "shape": f"[{M},{K}]x[{K},{N}] group {group} block_n 256"})
+        entry = {"name": f"w4_ablate.{mode}", "route": "cuda",
+                 "source": "eagle_tpu_torch/csrc/w4_ablate.cu",
+                 "replaces": "tools/probe_w4_ablate.py:37", "max_abs_err": worst[mode],
+                 "library_ms": None,
+                 "library_note": "no one PyTorch call computes this function; mm_ms is "
+                                 "one bf16 torch.mm of the same shape"}
+        for M in (32, 61, 512):
+            args = case(mode, M)
+            bn = tile(mode, M)
+            ms = device_time_ms(lambda: wab.ablate(mode, *args, group, bn), flush=flush)
+            a = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            b = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+            mm_ms = device_time_ms(lambda: torch.mm(a, b), flush=flush)
+            bound_ms, bound_by, nbytes = _ablate_bound(mode, M, K, N, K // group)
+            r = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, mm_ms=mm_ms,
+                     block_n=bn, shape=f"[{M},{K}]x[{K},{N}] group {group}")
+            b3 = ""
+            if mode == "i32_storage":
+                xq, rs, q4, sc = args
+                want = tq4.w4_kernel("qdense4", xq, rs, q4, sc, 1, None)
+                got = wab.ablate(mode, *args, group, bn)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"[B6] i32_storage M={M}: differs from B3's kernel alone")
+                r["b3_ms"] = device_time_ms(
+                    lambda: tq4.w4_kernel("qdense4", xq, rs, q4, sc, 1, None), flush=flush)
+                b3 = f", B3 kernel alone {r['b3_ms']:.4f} ms (same bits)"
+            if M == 32:
+                r["plain_ms"] = device_time_ms(lambda: wab.ablate_ref(mode, *args, group),
+                                               reps=5, flush=flush)
+                entry.update(r)
+            else:
+                entry[f"at_M{M}"] = r
+            log(f"[B6] {mode:12s} [{M},{K}]x[{K},{N}] group {group} block_n {bn}: kernel "
+                f"{ms:.4f} ms, bf16 torch.mm {mm_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}; {nbytes} B){b3}")
+        out.append(entry)
     return out
 
 
@@ -766,6 +872,59 @@ def check_exactness(dev) -> None:
         log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}"
             + (f", buckets used {sorted(used)}" if bucketed else ""))
 
+    # no new tokens: both vanilla paths return the prompt alone
+    for fused in (False, True):
+        out = base.generate_vanilla(prompts[0], max_new_tokens=0, fused=fused)
+        if not np.array_equal(out, prompts[0]):
+            fail(f"fp32 generate_vanilla(max_new_tokens=0, fused={fused}) returned "
+                 f"{len(out)} tokens for a prompt of {len(prompts[0])}")
+    log("[exact] generate_vanilla(max_new_tokens=0) returns the prompt, fused and not")
+
+    # the bonus token takes the vanilla rule: with two logits one f32 ulp apart
+    # (0.1 and the next float) in every row, the argmax is the larger one while
+    # a softmax rounds both to 0.5
+    orig = transformer.lm_head
+    lo = np.float32(0.1)
+    hi = np.nextafter(lo, np.float32(1.0))
+
+    def tied(p, c, h):
+        x = torch.full_like(orig(p, c, h), -30.0)
+        x[..., 0], x[..., 1] = float(lo), float(hi)
+        return x
+
+    transformer.lm_head = tied
+    try:
+        van = base.generate_vanilla(prompts[0], max_new_tokens=24)
+        outs = {"generate": base.generate(prompts[0], max_new_tokens=24),
+                "generate_fused": base.generate_fused(prompts[0], max_new_tokens=24)}
+    finally:
+        transformer.lm_head = orig
+    if not (van[len(prompts[0]):] == 1).all():
+        fail("fp32 one-ulp tie: vanilla did not take the larger logit")
+    for name, out in outs.items():
+        if not np.array_equal(out, van):
+            fail(f"fp32 one-ulp tie at the final node: {name} != generate_vanilla")
+    log("[exact] one-ulp logit tie in every row: generate == generate_fused == vanilla")
+
+    # head_dim 64, the hd64 path's head width, both attention kernels on
+    cfg64 = dataclasses.replace(cfg, num_q_heads=8, num_kv_heads=2, head_dim=64,
+                                intermediate_size=2048)
+    dcfg64 = dataclasses.replace(dcfg, num_q_heads=8, num_kv_heads=2, head_dim=64)
+    eng = EagleEngine(transformer.init_params(cfg64, seed=12, device=dev), cfg64,
+                      draft_mod.init_params(dcfg64, seed=13, device=dev), dcfg64, ecfg,
+                      device=dev)
+    ak.reset_launch_counts()
+    for prompt in prompts:
+        van = eng.generate_vanilla(prompt, max_new_tokens=64)
+        for name, out in (("generate", eng.generate(prompt, max_new_tokens=64)),
+                          ("generate_fused", eng.generate_fused(prompt, max_new_tokens=64))):
+            if not np.array_equal(out, van):
+                fail(f"fp32 head_dim 64: {name} != generate_vanilla (prompt {len(prompt)})")
+    if not (ak.LAUNCHES["tree_attention"] and ak.LAUNCHES["compact_rows"]):
+        fail(f"fp32 head_dim 64: launches {_nonzero(ak.LAUNCHES)}")
+    log(f"[exact] head_dim 64 target and draft, prompts {[len(p) for p in prompts]}: "
+        f"generate == generate_fused == vanilla; launches {_nonzero(ak.LAUNCHES)}")
+
 
 # ---------------------------------------------------------------------------
 # phase 4: the main paths at full width
@@ -790,6 +949,10 @@ def expected_launches(eng, requests: int, rounds: int) -> dict:
 
 
 def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict, EagleEngine]:
+    # an earlier path's engines may sit in reference cycles (a `_kv_limit`
+    # wrapper holds its engine): free them, so the peak is this path's own
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     eng = build(dev)
@@ -1052,10 +1215,13 @@ def main() -> None:
     launches, _, eng = main_path(dev, "int4", full_width.engine_int4, (24, 977))
     del eng
     torch.cuda.empty_cache()
+    hd64_launches, _, eng = main_path(dev, "hd64", full_width.engine_hd64, (24, 977))
+    del eng
+    torch.cuda.empty_cache()
     probe_launches = probe_path()
     for k in kernels:
-        # the int4 serving path runs B1-B5; the bf16 and the static-tree paths
-        # B1 and B2; the probe's path every variant of B6
+        # the int4 serving path runs B1-B5; the bf16, static-tree and hd64
+        # paths B1 and B2; the probe's path every variant of B6
         if k["name"].startswith("w4_ablate."):
             k["launches"] = probe_launches[k["name"]]
             k["path"] = "probe_w4_ablate `all` sweep, short chains"
@@ -1063,11 +1229,12 @@ def main() -> None:
             k["launches"] = launches[k["name"]]
             k["launches_bf16_path"] = bf16_launches[k["name"]]
             k["launches_static_path"] = static_launches[k["name"]]
+            k["launches_hd64_path"] = hd64_launches[k["name"]]
         if k["launches"] == 0:
             fail(f"{k['name']} was never launched on its path")
     for name in ("tree_attention", "compact_rows"):
-        if bf16_launches[name] == 0 or static_launches[name] == 0:
-            fail(f"{name} was never launched on the bf16 or the static-tree path")
+        if bf16_launches[name] == 0 or static_launches[name] == 0 or hd64_launches[name] == 0:
+            fail(f"{name} was never launched on the bf16, static-tree or hd64 path")
     log(f"[smoke] whole run, kernels' build included: {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

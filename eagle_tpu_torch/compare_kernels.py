@@ -15,8 +15,11 @@ in this tree), beside the harness's floor (one launch of a one-element
 `zero_`); B3 lm_head
 [M,4096]x[4096,128256] and B4 gate/up [M,4096]x[4096,14336] (layer 31 of
 32) at M = 1 and 61, on rows already quantized; B5 w4 [M,4096]x[4096,32000],
-k = 10, bf16 rows, at M = 1 and 10: the wrapper (row quantization included)
-and, where the tree has `score_topk.w4_score_kernel`, the kernel alone.
+k = 10, bf16 rows, at M = 1 and 10 and (k = 16) 32: the wrapper (row
+quantization included) and, where the tree has `score_topk.w4_score_kernel`,
+the kernel alone; where the tree takes more than 32 rows and k > 16
+(`score_topk.SMALL_K`), also M = 64 at k = 32 and M = 10 at k = 128, beside
+the drafter's unfused chain (qdense4, cast, log_softmax, topk_rows).
 Weights are random words (their values do not change the work). Times are
 taken by `device_time_ms`, which chip_smoke.py uses too: median of 30 single
 calls, CUDA events, each after a 128 MiB write that evicts L2 and a ~1 ms
@@ -117,13 +120,20 @@ def time_kernels() -> dict:
 
     # B5, w4 head
     qw = {"q4": words(K // 8, 32000), "scale": scales(K // 128, 32000)}
-    for M in (1, 10):
+    cases = [(1, 10), (10, 10), (32, 16)]
+    if hasattr(stk, "SMALL_K"):
+        cases += [(64, 32), (10, 128)]
+    for M, k in cases:
         h = rows(M, K)
-        out[f"B5 wrapper M={M}"] = time_ms(lambda: stk.score_topk_quant(h, qw, 10))
+        tag = f"M={M}" + ("" if k == 10 else f" k={k}")
+        out[f"B5 wrapper {tag}"] = time_ms(lambda: stk.score_topk_quant(h, qw, k))
         if hasattr(stk, "w4_score_kernel"):
             xq, sx, rs = tq4.quantize_for_w4(h, K // 128)
-            out[f"B5 kernel M={M}"] = time_ms(
-                lambda: stk.w4_score_kernel(xq, sx, rs, qw["q4"], qw["scale"], 10, 1))
+            out[f"B5 kernel {tag}"] = time_ms(
+                lambda: stk.w4_score_kernel(xq, sx, rs, qw["q4"], qw["scale"], k, 1))
+        if M * k > 160:
+            out[f"B5 unfused chain {tag}"] = time_ms(lambda: stk.topk_rows(
+                torch.log_softmax(tq4.qdense4(h, qw).to(torch.float32), dim=-1), k))
     return out
 
 

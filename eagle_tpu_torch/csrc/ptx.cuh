@@ -1,6 +1,7 @@
-// PTX wrappers shared by csrc/tree_attention.cu (B1) and csrc/w4_matmul.cu
-// (B3, B4): asynchronous copies into shared memory (cp.async), ldmatrix, and
-// the two mma.sync shapes the kernels use (built for sm_90a).
+// PTX wrappers shared by csrc/tree_attention.cu (B1) and the w4a8 main loop
+// (csrc/w4_mma.cuh: B3, B4, B5, B6): asynchronous copies into shared memory
+// (cp.async), ldmatrix, and the mma.sync shapes the kernels use (built for
+// sm_90a).
 
 #pragma once
 
@@ -63,6 +64,16 @@ __device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint32_t (&a)[4],
                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16x8] += a[16x32] * b[32x8], both signed int8 (the probe's raw-byte mode)
+__device__ __forceinline__ void mma_s8s8(int (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

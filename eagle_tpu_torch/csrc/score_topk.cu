@@ -5,7 +5,7 @@
 // the drafter's beam loop runs once per scoring stage when
 // EngineConfig.fuse_scoring is on and the draft's lm_head is quantized.
 //
-// Computes, for M <= 32 hidden rows against a quantized lm_head [K, V]:
+// Computes, for M hidden rows against a quantized lm_head [K, V], k <= 128:
 //   logits = w4: acc * sx, acc the w4a8 sum of csrc/w4_mma.cuh (ops/quant4's
 //                order of f32 sums, bit for bit)
 //            w8: (float(int32 dot) * sx) * scale      (ops/quant.qdense's order)
@@ -41,15 +41,25 @@
 //      candidate is not among the k best tiles' best candidates holds
 //      nothing of the top-k (k tiles have a candidate ahead of all of its
 //      own), so the merge first picks the k leading tiles by their heads,
-//      then the k best of those tiles' k * k candidates. Indices are unique,
-//      so the order (value desc, index asc) is total and the result does
-//      not depend on how the tiles were cut or in which order they finished.
-// The plan (row tile, 16-byte copies, shared memory, grid) is the wrapper's
+//      then the k best of those tiles' k * k candidates (k <= 16: at most
+//      256, eight a lane, in registers). For 16 < k <= 128 the warp runs a
+//      k-way merge of the T tiles' sorted lists instead: each round takes
+//      the best of the tiles' heads, and the winning tile's head moves to
+//      its next candidate, which its owning lane loaded in an earlier round
+//      (a tile's head and next candidate sit in the warp's shared memory, so
+//      the load of the one after is off the round's path). Indices are
+//      unique, so the order (value desc, index asc) is total and the result
+//      does not depend on how the tiles were cut or in which order they
+//      finished.
+//   Rows past 32 take more row tiles on the grid (each with its own merge
+//   counter); every row tile reads the head once.
+// The plan (row tile, 16-byte copies, merge, shared memory, grid) is the wrapper's
 // (ops/score_topk.score_plan); a launch checks it and refuses any other.
 //
 // The w8 head keeps its first body: a tile kernel of 64 columns (byte
 // gathers with stride V, four rows' bytes per dp4a) and a merge kernel of
-// one block per row. It runs at small sizes only.
+// one block per row (k rounds over every tile's k candidates, for any M and
+// k <= 128). It runs at small sizes only.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -71,6 +81,8 @@ constexpr int S_NT = 256;               // 8 warps, all across the columns
 constexpr int S_WARPS = S_NT / 32;
 constexpr int LD = S_NTILE + 8;         // floats per row of the logits tile
 constexpr int MERGE_CHUNK = 8;          // tiles a merging lane loads at once
+constexpr int SMALL_K = 16;             // k up to which the merge holds its candidates in registers
+constexpr int MAX_K = 128;              // one column tile
 
 template <int BM>
 using STile = w4mma::Tile<BM, S_NTILE, S_NT, S_WARPS>;
@@ -209,10 +221,11 @@ __device__ __forceinline__ bool behind(unsigned k, unsigned i, unsigned pk, unsi
   return k < pk || (k == pk && i > pi);
 }
 
-// one warp: the tiles' partials of row m -> scores and ids. hk / hi: T
-// unsigned each of shared memory, the warp's own.
-__device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
-                                          unsigned* hi, int lane) {
+// one warp: the row's log-sum-exp over the tiles' max and sum, and every
+// tile's head (BIG: and the candidate after it) into the warp's shared memory
+template <bool BIG>
+__device__ __forceinline__ float row_lse(const Score& s, int m, unsigned* hk, unsigned* hi,
+                                         unsigned* nk, unsigned* ni, int lane) {
   const int T = s.T, k = s.k;
   const float* st = s.stat + (size_t)m * T * 2;
   const size_t base = (size_t)m * T * k;
@@ -221,7 +234,7 @@ __device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
   float lm = -CUDART_INF_F, ls = 0.0f;   // this lane's max, sum of exp(. - lm)
   for (int t0 = lane; t0 < T; t0 += 32 * MERGE_CHUNK) {
     float tm[MERGE_CHUNK], ts[MERGE_CHUNK];
-    unsigned kk[MERGE_CHUNK], ii[MERGE_CHUNK];
+    unsigned kk[MERGE_CHUNK], ii[MERGE_CHUNK], k2[MERGE_CHUNK], i2[MERGE_CHUNK];
 #pragma unroll
     for (int q = 0; q < MERGE_CHUNK; ++q) {
       const int t = t0 + 32 * q;
@@ -232,6 +245,10 @@ __device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
         ts[q] = __ldcg(st + 2 * t + 1);
         kk[q] = __ldcg(s.ckey + base + (size_t)t * k);
         ii[q] = (unsigned)__ldcg(s.cidx + base + (size_t)t * k);
+        if constexpr (BIG) {
+          k2[q] = __ldcg(s.ckey + base + (size_t)t * k + 1);
+          i2[q] = (unsigned)__ldcg(s.cidx + base + (size_t)t * k + 1);
+        }
       }
     }
     float cm = lm;                       // finite: tile t0 exists
@@ -245,12 +262,25 @@ __device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
       if (t < T) {
         hk[t] = kk[q];
         hi[t] = ii[q];
+        if constexpr (BIG) {
+          nk[t] = k2[q];
+          ni[t] = i2[q];
+        }
       }
     }
     lm = cm;
   }
   const float gmax = warp_max(lm);
-  const float lse = gmax + logf(warp_sum(ls * expf(lm - gmax)));
+  return gmax + logf(warp_sum(ls * expf(lm - gmax)));
+}
+
+// one warp, k <= SMALL_K: the tiles' partials of row m -> scores and ids.
+// hk / hi: T unsigned each of shared memory, the warp's own.
+__device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
+                                          unsigned* hi, int lane) {
+  const int T = s.T, k = s.k;
+  const size_t base = (size_t)m * T * k;
+  const float lse = row_lse<false>(s, m, hk, hi, nullptr, nullptr, lane);
   __syncwarp();
 
   // the nsel tiles whose heads lead: lane j < nsel holds the j-th
@@ -301,7 +331,59 @@ __device__ __forceinline__ void merge_row(const Score& s, int m, unsigned* hk,
   }
 }
 
-template <int BM, bool VEC>
+// one warp, SMALL_K < k <= MAX_K: a k-way merge of the T tiles' sorted lists
+// of k. `sh`: 5 T words of shared memory, the warp's own: each tile's head
+// and next candidate (key, index) and the position of that next one. Tile t
+// belongs to lane t % 32, which alone reads and writes its entries (a round
+// needs no barrier, which would wait for the lane's loads in flight): it
+// moves its head on when it wins and loads the candidate after into
+// registers, written to shared memory only when one of its tiles wins again.
+__device__ __forceinline__ void merge_row_big(const Score& s, int m, unsigned* sh, int lane) {
+  const int T = s.T, k = s.k;
+  unsigned *hk = sh, *hi = sh + T, *nk = sh + 2 * T, *ni = sh + 3 * T;
+  int* pos = reinterpret_cast<int*>(sh + 4 * T);
+  const size_t base = (size_t)m * T * k;
+  const float lse = row_lse<true>(s, m, hk, hi, nk, ni, lane);
+  for (int t = lane; t < T; t += 32) pos[t] = 1;
+  bool pend = false;            // a loaded candidate not yet in shared memory
+  int pt = 0;
+  unsigned pk = 0, pi = 0;
+  for (int j = 0; j < k; ++j) {
+    unsigned bk = 0, bi = NONE;
+#pragma unroll 4
+    for (int t = lane; t < T; t += 32) {
+      const unsigned kk = hk[t], ii = hi[t];
+      if (ahead(kk, ii, bk, bi)) { bk = kk; bi = ii; }
+    }
+    warp_best(bk, bi);
+    if (lane == 0) {
+      s.scores[(size_t)m * k + j] = value_of(bk) - lse;
+      s.ids[(size_t)m * k + j] = (long long)bi;
+    }
+    const int t = (int)(bi / S_NTILE);   // a real column: k <= V
+    if ((t & 31) == lane) {
+      if (pend) {
+        nk[pt] = pk;
+        ni[pt] = pi;
+        pend = false;
+      }
+      hk[t] = nk[t];
+      hi[t] = ni[t];
+      const int p = ++pos[t];
+      if (p < k) {
+        pk = __ldcg(s.ckey + base + (size_t)t * k + p);
+        pi = (unsigned)__ldcg(s.cidx + base + (size_t)t * k + p);
+        pt = t;
+        pend = true;
+      } else {
+        nk[t] = 0;
+        ni[t] = NONE;
+      }
+    }
+  }
+}
+
+template <int BM, bool VEC, bool BIG>
 __global__ void __launch_bounds__(S_NT) score_mma_kernel(const __grid_constant__ ScoreParams p) {
   using TL = STile<BM>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -325,36 +407,42 @@ __global__ void __launch_bounds__(S_NT) score_mma_kernel(const __grid_constant__
   }
   if (!__syncthreads_or(last)) return;
   __threadfence();
-  unsigned* hk = reinterpret_cast<unsigned*>(smem) + (size_t)warp * 2 * s.T;
-  for (int r = warp; r < rows; r += S_WARPS) merge_row(s, m0 + r, hk, hk + s.T, lane);
+  if constexpr (BIG) {
+    unsigned* sh = reinterpret_cast<unsigned*>(smem) + (size_t)warp * 5 * s.T;
+    for (int r = warp; r < rows; r += S_WARPS) merge_row_big(s, m0 + r, sh, lane);
+  } else {
+    unsigned* hk = reinterpret_cast<unsigned*>(smem) + (size_t)warp * 2 * s.T;
+    for (int r = warp; r < rows; r += S_WARPS) merge_row(s, m0 + r, hk, hk + s.T, lane);
+  }
 }
 
 // the kernel's shared memory: the ring, the logits tile, then the merge's
-// heads, one region after the other in time
-template <int BM>
+// heads (BIG: heads, next candidates and positions), one region after the
+// other in time
+template <int BM, bool BIG>
 int score_smem(int T) {
   const size_t ring = (size_t)w4mma::NS * STile<BM>::SLOT;
   const size_t logits = (size_t)BM * LD * 4;
-  const size_t heads = (size_t)S_WARPS * T * 8;
+  const size_t heads = (size_t)S_WARPS * T * (BIG ? 20 : 8);
   const size_t b = ring > logits ? (ring > heads ? ring : heads) : (logits > heads ? logits : heads);
   return b > (size_t)w4mma::SMEM_MAX ? -1 : (int)b;
 }
 
-template <int BM, bool VEC>
+template <int BM, bool VEC, bool BIG>
 int launch_score(const ScoreParams& p, cudaStream_t st) {
   static bool smem_attr = false;
   // the wrapper's plan must be this layout's
-  if (p.a.smem != score_smem<BM>(p.s.T) || p.a.grid_m != (p.a.M + BM - 1) / BM ||
+  if (p.a.smem != score_smem<BM, BIG>(p.s.T) || p.a.grid_m != (p.a.M + BM - 1) / BM ||
       p.a.grid_n != p.s.T)
     return (int)cudaErrorInvalidValue;
   if (!smem_attr) {
-    cudaError_t e = cudaFuncSetAttribute(score_mma_kernel<BM, VEC>,
+    cudaError_t e = cudaFuncSetAttribute(score_mma_kernel<BM, VEC, BIG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          w4mma::SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     smem_attr = true;
   }
-  score_mma_kernel<BM, VEC><<<dim3(p.a.grid_m, p.a.grid_n), S_NT, p.a.smem, st>>>(p);
+  score_mma_kernel<BM, VEC, BIG><<<dim3(p.a.grid_m, p.a.grid_n), S_NT, p.a.smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -561,8 +649,9 @@ void launch_w8_tiles(const void* xq, const void* sx, const void* q8, const void*
 // w4. xq: int8 [M, K]; rs: int32 [M, G]; sx: f32 [M]; q4: int32 [K/8, V];
 // scale: f32 [G, V]; ws: 4-byte workspace [M * T * (2 + 2k)] with T the
 // column tiles; counters: int32 [row tiles], zero (and left zero); scores:
-// f32 [M, k]; ids: int64 [M, k]. bm (rows per block), vec (16-byte copies),
-// smem (dynamic shared memory, bytes) and the grid's row and column tiles are
+// f32 [M, k]; ids: int64 [M, k]; k <= 128, k <= V; any M. bm (rows per
+// block), vec (16-byte copies), smem (dynamic shared memory, bytes; the merge
+// it holds follows k) and the grid's row and column tiles are
 // ops/score_topk.score_plan's. Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
@@ -570,7 +659,7 @@ extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
                                  void* counters, void* scores, void* ids, int M, int K,
                                  int V, int G, int k, int cast_bf16, int bm, int vec,
                                  int smem, int grid_m, int grid_n, void* stream) {
-  if (M <= 0 || M > 32 || k <= 0 || k > 16 || k > V || grid_n > 65535)
+  if (M <= 0 || k <= 0 || k > MAX_K || k > V || grid_n > 65535)
     return (int)cudaErrorInvalidValue;
   ScoreParams p;
   const int err = w4mma::make_args(p.a, xq, rs, q4, scale, nullptr, M, K, V, G, 1, 0, vec,
@@ -589,11 +678,14 @@ extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
   p.s.cast_bf16 = cast_bf16;
   p.s.T = T;
   cudaStream_t st = (cudaStream_t)stream;
+#define SCORE(BM, BIG) (p.a.vec ? launch_score<BM, true, BIG>(p, st) : launch_score<BM, false, BIG>(p, st))
+  const bool big = k > SMALL_K;
   switch (bm) {
-    case 16: return p.a.vec ? launch_score<16, true>(p, st) : launch_score<16, false>(p, st);
-    case 32: return p.a.vec ? launch_score<32, true>(p, st) : launch_score<32, false>(p, st);
+    case 16: return big ? SCORE(16, true) : SCORE(16, false);
+    case 32: return big ? SCORE(32, true) : SCORE(32, false);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SCORE
 }
 
 // w8. xq: int8 [M, K]; sx: f32 [M]; q8: int8 [K, V]; scale: f32 [V]; ws:
@@ -606,7 +698,7 @@ extern "C" int score_topk_w8_launch(const void* xq, const void* sx, const void* 
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int T = (V + TILE8 - 1) / TILE8;
-  if (M <= 0 || M > 32 || k <= 0 || k > 16 || k > V || K % 8 != 0 || T > 65535)
+  if (M <= 0 || k <= 0 || k > MAX_K || k > V || K % 8 != 0 || T > 65535)
     return (int)cudaErrorInvalidValue;
   float* stat = (float*)ws;
   float* cval = stat + (size_t)M * T * 2;

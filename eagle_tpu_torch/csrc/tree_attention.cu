@@ -14,7 +14,8 @@
 // n_kv = 8, d = 128) one launch reads the prefix K/V once, 4 KiB per row and
 // head pair, and does 4*T*nq*(start+Tk)*d flops: ~1.1 GFLOP against ~4 MB at
 // start = 1024, about 270 flop/byte, just under the bf16 tensor-core ridge
-// (~295): the bytes bound it, 1.6 us.
+// (~295): the bytes bound it, 1.6 us. The head width d is a template
+// parameter of every kernel here; 64 (Llama-3.2-1B class) and 128 are built.
 //
 // bf16 (the serving path), `tree_attn_mma_kernel`:
 //  - Products on tensor cores: mma.sync m16n8k16 bf16 with f32 accumulators
@@ -249,9 +250,13 @@ void launch(const void* q, const void* kc, const void* vc, const void* kt,
 constexpr int BR = 64;                 // query rows per block: 4 warps x m16
 constexpr int CHUNK = 256;             // prefix keys per block
 constexpr int BKT = 64;                // keys per tile (one cp.async stage)
-constexpr int HD = 128;                // head_dim
-constexpr int RS = HD + 8;             // bf16 per shared row (272 B): conflict-free ldmatrix
-constexpr int MMA_SMEM = (BR + 4 * BKT) * RS * 2;   // Q + two stages of K and V
+// bf16 per shared row: HD + 8 (272 B at 128, 144 B at 64) keeps rows 16-byte
+// aligned and puts the 8 rows an ldmatrix reads 16 bytes apart mod 128 B, so
+// they hit eight different bank groups at either width
+template <int HD>
+__host__ __device__ constexpr int row_stride() { return HD + 8; }
+template <int HD>
+__host__ __device__ constexpr int mma_smem() { return (BR + 4 * BKT) * row_stride<HD>() * 2; }   // Q + two stages of K and V
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -265,6 +270,7 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
 }
 
+template <int HD>
 __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const __nv_bfloat16* __restrict__ kt,
@@ -272,6 +278,8 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     const int* __restrict__ start_ptr, __nv_bfloat16* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ counters,
     int Tq, int Tk, int nq, int nkv, int S_rows, int head_stride, float scale) {
+  constexpr int RS = row_stride<HD>();
+  static_assert(HD % 16 == 0 && (RS * 2) % 16 == 0, "rows of whole ldmatrix tiles, 16-byte aligned");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -450,7 +458,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   if (!is_last) return;
   __threadfence();
 
-  // merge, in chunk order: thread -> row tid / 2, 64 dims
+  // merge, in chunk order: thread -> row tid / 2, HD / 2 dims
   const int lr = tid >> 1, d0 = (tid & 1) * (HD / 2), gr = r0 + lr;
   if (gr >= rows) return;
   float M = NEG_INF;
@@ -484,6 +492,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   }
 }
 
+template <int HD>
 int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
                const void* vt, const void* mask, const void* start, void* out,
                void* part_acc, void* part_ml, void* counters, int Tq, int Tk, int nq,
@@ -497,12 +506,12 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
     return (int)cudaErrorInvalidValue;
   if (!smem_attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tree_attn_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM);
+        tree_attn_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<HD>());
     if (e != cudaSuccess) return (int)e;
     smem_attr = true;
   }
   const dim3 grid(row_tiles, chunks + 1, nkv);
-  tree_attn_mma_kernel<<<grid, NT, MMA_SMEM, stream>>>(
+  tree_attn_mma_kernel<HD><<<grid, NT, mma_smem<HD>(), stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc,
       (const __nv_bfloat16*)kt, (const __nv_bfloat16*)vt, (const uint8_t*)mask,
       (const int*)start, (__nv_bfloat16*)out, (float*)part_acc, (float*)part_ml,
@@ -512,7 +521,8 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim must be 128 (Llama-3.1-8B's).
+// dtype: 0 = float32, 1 = bfloat16. d: head_dim, 64 (Llama-3.2-1B's) or 128
+// (Llama-3.1-8B's); each is its own instantiation of both kernels.
 // S_rows: the cache's (or view's) rows; head_stride: rows between two kv
 // heads of the buffer. bf16 only: the plan of ops/attn_kernels.tree_plan
 // (rows_per_tile = 64 query rows and chunk = 256 prefix keys a block,
@@ -527,15 +537,19 @@ extern "C" int tree_attention_launch(
     int nkv, int S_rows, int head_stride, int d, int rows_per_tile, int chunk, int row_tiles,
     int chunks, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (d != 128) return (int)cudaErrorInvalidValue;
+  if ((d != 64 && d != 128) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch<float, 128>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, T, Tk,
-                       nq, nkv, S_rows, head_stride, scale, st);
+    if (d == 64)
+      launch<float, 64>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, T, Tk,
+                        nq, nkv, S_rows, head_stride, scale, st);
+    else
+      launch<float, 128>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, T, Tk,
+                         nq, nkv, S_rows, head_stride, scale, st);
     return (int)cudaGetLastError();
   }
-  if (dtype == 1)
-    return launch_mma(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, part_acc,
-                      part_ml, counters, T, Tk, nq, nkv, S_rows, head_stride, rows_per_tile,
-                      chunk, row_tiles, chunks, scale, st);
-  return (int)cudaErrorInvalidValue;
+#define MMA(HD) launch_mma<HD>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
+                               part_acc, part_ml, counters, T, Tk, nq, nkv, S_rows,       \
+                               head_stride, rows_per_tile, chunk, row_tiles, chunks, scale, st)
+  return d == 64 ? MMA(64) : MMA(128);
+#undef MMA
 }

@@ -20,365 +20,200 @@
 // term(g) = float(dot_g - rs[:, g]) * scale[g, :] (one rounded multiply), acc
 // summed with one rounded add per term:
 //   full          u8   g = 0 .. G-1 in order (low-half groups, then high)
-//   bf16_dots     u8   the same sum, each dot as float multiply-adds of
-//                      bf16-exact operands (every partial sum < 2^24: exact)
+//   bf16_dots     u8   the same sum, each dot as bf16 mma with f32 sums
+//                      (every partial sum is an integer below 2^24: exact)
 //   no_unpack     u8   the same loop on the raw bytes read as int8, both halves
 //   no_dots       u8   every row = f32 column sum of the low nibbles plus that
 //                      of the high nibbles; no dot, no scale
 //   one_dot       u8   per half one dot of xq[:, :K/2] over all K/2 rows,
 //                      times scale[0, :]
-//   one_dot_bf16  u8   the same with float multiply-adds
-//   i32_storage   i32  `full`'s sum through w4::column_acc (csrc/w4_dot.cuh)
+//   one_dot_bf16  u8   the same with bf16 mma
+//   i32_storage   i32  `full`'s sum: the engines' loop itself
 //   fused_unpack  i32  each word read once: low group g and high group hg + g
 //                      come from the same words; terms added g, hg+g, g+1, ..
-//   batched_dot   i32  all G integer dots first, staged in shared memory as
-//                      int32 [G, 16, 64]; then one f32 reduction, g = 0 .. G-1
-//                      in order (the JAX probe leaves that order to XLA)
+//   batched_dot   i32  all G integer dots first, staged in shared memory;
+//                      then one f32 reduction, g = 0 .. G-1 in order (the JAX
+//                      probe leaves that order to XLA)
 //
 // What bounds it on the H100: the packed weights, K * N / 2 bytes, read once
 // (8.4 MB at 4096 x 4096, 2.5 us at 3.35 TB/s); at M = 512 the integer
-// multiply-adds against the int8 tensor-core peak. No variant uses tensor
-// cores: they are B3's __dp4a body and its lane layout (csrc/w4_dot.cuh: a
-// warp covers 8 adjacent columns, the 4 lanes of a column split each dot
-// over K and add their partial sums with two shuffles), so that what a
-// variant gains or loses here is what B3 would.
+// multiply-adds against the int8 tensor-core peak.
 //
-// Launch shape: `block_n` is the number of columns one thread block owns (a
-// multiple of 64): a block of 256 threads walks its columns 64 at a time.
-// Rows go in tiles of 16 on the fast grid axis, so blocks that share weight
-// columns run together and share L2. A small block_n gives many blocks, a
-// large one few: at block_n = 2048 and M = 32 only four blocks run.
+// The design: every mode is the main loop of B3, B4 and B5 (csrc/w4_mma.cuh:
+// mma.sync m16n8k32 s8 x u8, the cp.async ring of group-sized stages, the
+// f32 chain after each group) with one part swapped or taken away through
+// the loop's `Body` parameter, on B3's tile (w4mma::MatTile, 64 rows). So
+// the gap between a mode and `i32_storage` is what that part costs the
+// engines' loop:
+//   - u8 modes: a stage holds byte rows; a B fragment (four K-consecutive
+//     bytes of one column) is gathered with four byte loads and two byte
+//     permutes (`full` against `i32_storage`: the storage format);
+//   - no_unpack: no AND and shift, s8 x s8 mma;
+//   - no_dots: the copies, the barrier and the unpack, then column sums
+//     (dp4a with ones) instead of mma;
+//   - one_dot: no chain after each group, one per half;
+//   - bf16 modes: the int8 fragments converted to bf16 pairs, two m16n8k16
+//     mma per k32 step;
+//   - fused_unpack: one pass over the words instead of two (each stage also
+//     carries the high half's activations, rs and scales);
+//   - batched_dot: the chain taken out of the loop.
 //
-// The u8 variants read their bytes with stride N: neighbouring lanes take
-// neighbouring columns, so a warp's load covers 8 bytes of each of 4 rows,
-// and four byte loads replace one word load. They read every byte twice (low
-// pass, high pass) as B3 reads every word twice.
+// Launch shape: `block_n` is the number of columns one block owns (a multiple
+// of 8); the block walks them one column tile at a time, the tile being
+// ops/quant4.w4_plan's for the shapes (the widest that divides block_n; for
+// batched_dot the widest whose staged dots fit shared memory; never the
+// cluster split). At block_n = w4_plan's tile, `i32_storage` is B3's launch.
+// The plan is the wrapper's (ops/w4_ablate.ablate_plan); the launch checks it.
 
-#include <cuda_bf16.h>
-
-#include "w4_dot.cuh"
+#include "w4_mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;                                   // 8 warps
-constexpr int COLS = (NT / 32) * w4::COLS_PER_WARP;       // 64 columns per pass
-constexpr int MT = 16;                                    // rows per block
-constexpr uint32_t NIB = 0x0F0F0F0Fu;
+using w4mma::Body;
+using w4mma::MatTile;
+using w4mma::NS;
+using w4mma::SMEM_MAX;
 
 enum Mode { FULL = 0, BF16_DOTS, NO_UNPACK, NO_DOTS, ONE_DOT, ONE_DOT_BF16,
             I32_STORAGE, FUSED_UNPACK, BATCHED_DOT };
-enum Plane { LO = 0, HI, RAW, BOTH };
 
-// What one thread needs for its column.
-struct Col {
-  const int* xw;        // activations as int32 words [M, K/4]
-  const int* rs;        // [M, G]
-  const void* p;        // weights
-  const float* scale;   // [G, N]
-  int N, G, kw, kslice, n;
-  bool vec;             // 16-byte activation loads allowed
-  int row[MT], xo[MT];  // clamped rows and their word offsets
+// Body<U8, UNPACK, FLOAT, FUSED, A_LOW, CHAIN> of each mode
+template <int MODE> struct ModeBody;
+template <> struct ModeBody<FULL> { using B = Body<true, true, false, false, false, w4mma::PER_GROUP>; };
+template <> struct ModeBody<BF16_DOTS> { using B = Body<true, true, true, false, false, w4mma::PER_GROUP>; };
+template <> struct ModeBody<NO_UNPACK> { using B = Body<true, false, false, false, false, w4mma::PER_GROUP>; };
+template <> struct ModeBody<NO_DOTS> { using B = Body<true, true, false, false, false, w4mma::COLSUM>; };
+template <> struct ModeBody<ONE_DOT> { using B = Body<true, true, false, false, true, w4mma::PER_HALF>; };
+template <> struct ModeBody<ONE_DOT_BF16> { using B = Body<true, true, true, false, true, w4mma::PER_HALF>; };
+template <> struct ModeBody<I32_STORAGE> { using B = w4mma::Engine; };
+template <> struct ModeBody<FUSED_UNPACK> { using B = Body<false, true, false, true, false, w4mma::PER_GROUP>; };
+template <> struct ModeBody<BATCHED_DOT> { using B = Body<false, true, false, false, false, w4mma::STAGED>; };
+
+// B3's store epilogue, for the column tile starting at n0
+template <class TL>
+struct Store {
+  float* out;
+  int M, N, n0;
+  __device__ __forceinline__ void operator()(float (&acc)[TL::MPW][TL::NPW][4],
+                                             bool (&live)[TL::MPW],
+                                             const w4mma::Frag<TL>& fr) const {
+    const int m0 = blockIdx.x * TL::BM;
+#pragma unroll
+    for (int mi = 0; mi < TL::MPW; ++mi) {
+      if (!live[mi]) continue;
+#pragma unroll
+      for (int ni = 0; ni < TL::NPW; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = m0 + fr.row0(mi) + 8 * (e >> 1);
+          const int col = n0 + fr.col0(ni) + (e & 1);
+          if (row < M && col < N) out[(size_t)row * N + col] = acc[mi][ni][e];
+        }
+    }
+  }
 };
 
-// The four bytes of byte rows 4*wrow .. 4*wrow+3 at the thread's column.
-template <bool U8>
-__device__ __forceinline__ uint32_t fetch(const Col& c, int wrow) {
-  if constexpr (U8) {
-    const uint8_t* b = (const uint8_t*)c.p + (size_t)(4 * wrow) * c.N + c.n;
-    const size_t N = (size_t)c.N;
-    return (uint32_t)__ldg(b) | ((uint32_t)__ldg(b + N) << 8) |
-           ((uint32_t)__ldg(b + 2 * N) << 16) | ((uint32_t)__ldg(b + 3 * N) << 24);
-  } else {
-    return __ldg((const uint32_t*)c.p + (size_t)wrow * c.N + c.n);
-  }
-}
-
-template <int PL>
-__device__ __forceinline__ int plane(uint32_t raw) {
-  return PL == LO ? (int)(raw & NIB) : PL == HI ? (int)((raw >> 4) & NIB) : (int)raw;
-}
-
-__device__ __forceinline__ int warp_share(int d) {
-  d += __shfl_xor_sync(0xffffffffu, d, 8);
-  d += __shfl_xor_sync(0xffffffffu, d, 16);
-  return d;
-}
-
-// Integer dots of word rows [w0, w0 + nw) against activation words starting
-// at xa (and, for BOTH, the high nibbles against those starting at xb).
-// After the call all 4 lanes of a column hold the full dots.
-template <bool U8, int PL>
-__device__ __forceinline__ void int_dots(const Col& c, int w0, int nw, int xa, int xb,
-                                         int (&da)[MT], int (&db)[MT]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) da[m] = db[m] = 0;
-  if (c.vec && nw % (4 * w4::KSLICES) == 0) {
-    for (int i = 4 * c.kslice; i < nw; i += 4 * w4::KSLICES) {
-      uint32_t raw[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) raw[j] = fetch<U8>(c, w0 + i + j);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int4 xv = __ldg(reinterpret_cast<const int4*>(c.xw + c.xo[m] + xa + i));
-        if constexpr (PL == BOTH) {
-          const int4 xh = __ldg(reinterpret_cast<const int4*>(c.xw + c.xo[m] + xb + i));
-          da[m] = __dp4a(plane<LO>(raw[0]), xv.x, da[m]);
-          da[m] = __dp4a(plane<LO>(raw[1]), xv.y, da[m]);
-          da[m] = __dp4a(plane<LO>(raw[2]), xv.z, da[m]);
-          da[m] = __dp4a(plane<LO>(raw[3]), xv.w, da[m]);
-          db[m] = __dp4a(plane<HI>(raw[0]), xh.x, db[m]);
-          db[m] = __dp4a(plane<HI>(raw[1]), xh.y, db[m]);
-          db[m] = __dp4a(plane<HI>(raw[2]), xh.z, db[m]);
-          db[m] = __dp4a(plane<HI>(raw[3]), xh.w, db[m]);
-        } else {
-          da[m] = __dp4a(plane<PL>(raw[0]), xv.x, da[m]);
-          da[m] = __dp4a(plane<PL>(raw[1]), xv.y, da[m]);
-          da[m] = __dp4a(plane<PL>(raw[2]), xv.z, da[m]);
-          da[m] = __dp4a(plane<PL>(raw[3]), xv.w, da[m]);
-        }
-      }
-    }
-  } else {
-    for (int i = c.kslice; i < nw; i += w4::KSLICES) {
-      const uint32_t raw = fetch<U8>(c, w0 + i);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if constexpr (PL == BOTH) {
-          da[m] = __dp4a(plane<LO>(raw), __ldg(c.xw + c.xo[m] + xa + i), da[m]);
-          db[m] = __dp4a(plane<HI>(raw), __ldg(c.xw + c.xo[m] + xb + i), db[m]);
-        } else {
-          da[m] = __dp4a(plane<PL>(raw), __ldg(c.xw + c.xo[m] + xa + i), da[m]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    da[m] = warp_share(da[m]);
-    if constexpr (PL == BOTH) db[m] = warp_share(db[m]);
-  }
-}
-
-// The same dots as float multiply-adds of bf16-exact operands (u8 storage).
-// Every partial sum is an integer below 2^24, so the result is exact.
-template <int PL>
-__device__ __forceinline__ void float_dots(const Col& c, int w0, int nw, int xa,
-                                           float (&d)[MT]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) d[m] = 0.0f;
-  for (int i = c.kslice; i < nw; i += w4::KSLICES) {
-    const uint32_t nib = (uint32_t)plane<PL>(fetch<true>(c, w0 + i));
-    float w[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      w[b] = __bfloat162float(__uint2bfloat16_rn((nib >> (8 * b)) & 0xFFu));
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int xv = __ldg(c.xw + c.xo[m] + xa + i);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float a = __bfloat162float(__int2bfloat16_rn((int)(int8_t)(xv >> (8 * b))));
-        d[m] = fmaf(a, w[b], d[m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    d[m] += __shfl_xor_sync(0xffffffffu, d[m], 8);
-    d[m] += __shfl_xor_sync(0xffffffffu, d[m], 16);
-  }
-}
-
-// acc += float(d - rs[:, g]) * scale[g]: one rounded multiply, one rounded add.
-__device__ __forceinline__ void add_term(const Col& c, int g, const int (&d)[MT],
-                                         float (&acc)[MT]) {
-  const float s = __ldg(c.scale + (size_t)g * c.N + c.n);
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float corr = (float)(d[m] - __ldg(c.rs + (size_t)c.row[m] * c.G + g));
-    acc[m] = __fadd_rn(acc[m], __fmul_rn(corr, s));
-  }
-}
-
-__device__ __forceinline__ void add_term_f(const Col& c, int g, const float (&d)[MT],
-                                           float (&acc)[MT]) {
-  const float s = __ldg(c.scale + (size_t)g * c.N + c.n);
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float corr = __fsub_rn(d[m], (float)__ldg(c.rs + (size_t)c.row[m] * c.G + g));
-    acc[m] = __fadd_rn(acc[m], __fmul_rn(corr, s));
-  }
-}
-
-__device__ __forceinline__ int byte_sum(uint32_t x) {
-  return (int)((x & 0xFFu) + ((x >> 8) & 0xFFu) + ((x >> 16) & 0xFFu) + (x >> 24));
-}
-
-template <int MODE>
+template <int MODE, int NTILE, bool VEC, int NT = w4mma::mat_threads<NTILE>()>
 __global__ void __launch_bounds__(NT) ablate_kernel(
-    const int* __restrict__ xw, const int* __restrict__ rs, const void* __restrict__ p,
-    const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N, int G,
-    int block_n) {
-  extern __shared__ int stage[];            // batched_dot: int32 [G, MT, COLS]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ci = warp * w4::COLS_PER_WARP + (lane & 7);   // column within a pass
-  const int m0 = blockIdx.x * MT;
-  const int wpg = K / G / 4;                // word rows per group
-  const int hg = G / 2;                     // groups per half
-  const int hw = K / 8;                     // word rows per half
-
-  Col c;
-  c.xw = xw; c.rs = rs; c.p = p; c.scale = scale;
-  c.N = N; c.G = G; c.kw = K / 4; c.kslice = lane >> 3;
-  c.vec = c.kw % 4 == 0 && (reinterpret_cast<uintptr_t>(xw) & 15) == 0;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    c.row[m] = min(m0 + m, M - 1);
-    c.xo[m] = c.row[m] * c.kw;
-  }
-
-  for (int c0 = 0; c0 < block_n; c0 += COLS) {
-    const int col = blockIdx.y * block_n + c0 + ci;
-    c.n = min(col, N - 1);
-    float acc[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
-    int d[MT], e[MT];
-
-    if constexpr (MODE == I32_STORAGE) {
-      w4::column_acc<MT>(xw, rs, (const uint32_t*)p, scale, M, K, N, G, 1, m0, c.n,
-                         c.kslice, acc);
-    } else if constexpr (MODE == FULL || MODE == NO_UNPACK) {
-      for (int g = 0; g < hg; ++g) {
-        int_dots<true, MODE == FULL ? LO : RAW>(c, g * wpg, wpg, g * wpg, 0, d, e);
-        add_term(c, g, d, acc);
-      }
-      for (int g = 0; g < hg; ++g) {
-        int_dots<true, MODE == FULL ? HI : RAW>(c, g * wpg, wpg, (hg + g) * wpg, 0, d, e);
-        add_term(c, hg + g, d, acc);
-      }
-    } else if constexpr (MODE == BF16_DOTS) {
-      float f[MT];
-      for (int g = 0; g < hg; ++g) {
-        float_dots<LO>(c, g * wpg, wpg, g * wpg, f);
-        add_term_f(c, g, f, acc);
-      }
-      for (int g = 0; g < hg; ++g) {
-        float_dots<HI>(c, g * wpg, wpg, (hg + g) * wpg, f);
-        add_term_f(c, hg + g, f, acc);
-      }
-    } else if constexpr (MODE == NO_DOTS) {
-      int sl = 0, sh = 0;
-      for (int i = c.kslice; i < hw; i += w4::KSLICES) {
-        const uint32_t raw = fetch<true>(c, i);
-        sl += byte_sum(raw & NIB);
-        sh += byte_sum((raw >> 4) & NIB);
-      }
-      sl = warp_share(sl);
-      sh = warp_share(sh);
-      const float v = __fadd_rn(__fadd_rn(0.0f, (float)sl), (float)sh);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = v;
-    } else if constexpr (MODE == ONE_DOT) {
-      const float s = __ldg(scale + c.n);
-      int_dots<true, LO>(c, 0, hw, 0, 0, d, e);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], __fmul_rn((float)d[m], s));
-      int_dots<true, HI>(c, 0, hw, 0, 0, d, e);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], __fmul_rn((float)d[m], s));
-    } else if constexpr (MODE == ONE_DOT_BF16) {
-      const float s = __ldg(scale + c.n);
-      float f[MT];
-      float_dots<LO>(c, 0, hw, 0, f);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], __fmul_rn(f[m], s));
-      float_dots<HI>(c, 0, hw, 0, f);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = __fadd_rn(acc[m], __fmul_rn(f[m], s));
-    } else if constexpr (MODE == FUSED_UNPACK) {
-      for (int g = 0; g < hg; ++g) {
-        int_dots<false, BOTH>(c, g * wpg, wpg, g * wpg, (hg + g) * wpg, d, e);
-        add_term(c, g, d, acc);
-        add_term(c, hg + g, e, acc);
-      }
-    } else {  // BATCHED_DOT
-      for (int g = 0; g < hg; ++g) {
-        int_dots<false, BOTH>(c, g * wpg, wpg, g * wpg, (hg + g) * wpg, d, e);
-        if (c.kslice == 0) {
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            stage[(g * MT + m) * COLS + ci] = d[m];
-            stage[((hg + g) * MT + m) * COLS + ci] = e[m];
-          }
-        }
-      }
-      __syncwarp();        // the 4 lanes of a column read what lane kslice 0 wrote
-      for (int g = 0; g < G; ++g) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) d[m] = stage[(g * MT + m) * COLS + ci];
-        add_term(c, g, d, acc);
-      }
-      __syncwarp();        // before the next pass overwrites the stage
-    }
-
-    if (c.kslice == 0 && col < N) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        if (m0 + m < M) out[(size_t)(m0 + m) * N + col] = acc[m];
-    }
+    const __grid_constant__ w4mma::Args a, int tiles_per_block) {
+  using TL = MatTile<NTILE>;
+  using B = typename ModeBody<MODE>::B;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t0 = blockIdx.y * tiles_per_block;
+  const int t1 = min(t0 + tiles_per_block, (a.N + NTILE - 1) / NTILE);
+#pragma unroll 1
+  for (int ct = t0; ct < t1; ++ct) {
+    if (ct > t0) __syncthreads();   // the previous tile's ring is fully read
+    Store<TL> epi = {a.out, a.M, a.N, ct * NTILE};
+    w4mma::run<TL, VEC, Store<TL>, B>(a, smem, epi, ct);
   }
 }
 
-template <int MODE>
-int launch(const void* xq, const void* rs, const void* p, const void* scale, void* out,
-           int M, int K, int N, int G, int block_n, cudaStream_t st) {
-  size_t smem = 0;
-  if (MODE == BATCHED_DOT) {
-    smem = (size_t)G * MT * COLS * sizeof(int);
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          ablate_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
+template <int MODE, int NTILE>
+size_t smem_of(const w4mma::Args& a) {
+  using TL = MatTile<NTILE>;
+  using B = typename ModeBody<MODE>::B;
+  const size_t staged = B::CHAIN == w4mma::STAGED ? (size_t)a.G * TL::BM * NTILE * 4 : 0;
+  return (size_t)NS * w4mma::Slot<TL, B>::SLOT + staged;
+}
+
+template <int MODE, int NTILE, bool VEC>
+int launch(const w4mma::Args& a, int tiles_per_block, cudaStream_t st) {
+  using TL = MatTile<NTILE>;
+  static bool smem_attr = false;
+  // the wrapper's plan must be this layout's
+  const size_t smem = smem_of<MODE, NTILE>(a);
+  if (smem > (size_t)SMEM_MAX || (int)smem != a.smem ||
+      a.grid_m != (a.M + TL::BM - 1) / TL::BM ||
+      a.grid_n != (a.N + tiles_per_block * NTILE - 1) / (tiles_per_block * NTILE))
+    return (int)cudaErrorInvalidValue;
+  if (!smem_attr) {
+    const cudaError_t e = cudaFuncSetAttribute(ablate_kernel<MODE, NTILE, VEC>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    smem_attr = true;
   }
-  dim3 grid((M + MT - 1) / MT, (N + block_n - 1) / block_n);
-  ablate_kernel<MODE><<<grid, NT, smem, st>>>(
-      (const int*)xq, (const int*)rs, p, (const float*)scale, (float*)out, M, K, N, G,
-      block_n);
+  ablate_kernel<MODE, NTILE, VEC><<<dim3(a.grid_m, a.grid_n), TL::NT, smem, st>>>(
+      a, tiles_per_block);
   return (int)cudaGetLastError();
+}
+
+// u8 modes copy byte rows 16 bytes at a time only where a tile row has 16
+template <int MODE, int NTILE>
+int by_vec(const w4mma::Args& a, int tiles_per_block, cudaStream_t st) {
+  if constexpr (ModeBody<MODE>::B::U8 && NTILE < 16)
+    return a.vec ? (int)cudaErrorInvalidValue : launch<MODE, NTILE, false>(a, tiles_per_block, st);
+  else
+    return a.vec ? launch<MODE, NTILE, true>(a, tiles_per_block, st)
+                 : launch<MODE, NTILE, false>(a, tiles_per_block, st);
+}
+
+template <int MODE>
+int by_tile(w4mma::Args& a, int ntile, int tiles_per_block, cudaStream_t st) {
+  using B = typename ModeBody<MODE>::B;
+  if (B::U8 && (a.N % 4 != 0 || (a.vec && a.N % 16 != 0))) return (int)cudaErrorInvalidValue;
+  if (B::FUSED) a.nstages /= 2;     // one pass over the words
+  switch (ntile) {
+    case 8: return by_vec<MODE, 8>(a, tiles_per_block, st);
+    case 16: return by_vec<MODE, 16>(a, tiles_per_block, st);
+    case 32: return by_vec<MODE, 32>(a, tiles_per_block, st);
+    case 64: return by_vec<MODE, 64>(a, tiles_per_block, st);
+    case 128: return by_vec<MODE, 128>(a, tiles_per_block, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // B6. mode: the Mode enum above (ops/w4_ablate.py:MODES in the same order).
-// xq: int8 [M, K]; rs: int32 [M, G]; p: u8 [K/2, N] (modes 0-5) or int32
-// [K/8, N] (modes 6-8); scale: f32 [G, N]; out: f32 [M, N]; block_n: columns
-// per thread block, a multiple of 64. Returns cudaGetLastError() after the
+// xq: int8 [M, K]; rs: int32 [M, G]; p: u8 [K/2, N] (modes 0-5, N % 4 == 0)
+// or int32 [K/8, N] (modes 6-8); scale: f32 [G, N]; out: f32 [M, N];
+// block_n: columns per block, a multiple of ntile. ntile, vec, smem and the
+// grid are ops/w4_ablate.ablate_plan's. Returns cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int w4_ablate_launch(int mode, const void* xq, const void* rs, const void* p,
                                 const void* scale, void* out, int M, int K, int N, int G,
-                                int block_n, void* stream) {
-  if (M <= 0 || N <= 0 || G <= 0 || G % 2 != 0 || K % 8 != 0 || K % G != 0 ||
-      (K / G) % 4 != 0 || block_n <= 0 || block_n % COLS != 0 ||
-      (N + block_n - 1) / block_n > 65535)
+                                int block_n, int ntile, int vec, int smem, int grid_m,
+                                int grid_n, void* stream) {
+  if (ntile <= 0 || block_n <= 0 || block_n % ntile != 0 || grid_n > 65535)
     return (int)cudaErrorInvalidValue;
+  w4mma::Args a;
+  const int err = w4mma::make_args(a, xq, rs, p, scale, out, M, K, N, G, 1, 0, vec, smem,
+                                   grid_m, grid_n);
+  if (err != 0) return err;
+  const int tpb = block_n / ntile;
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
-    case FULL: return launch<FULL>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case BF16_DOTS: return launch<BF16_DOTS>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case NO_UNPACK: return launch<NO_UNPACK>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case NO_DOTS: return launch<NO_DOTS>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case ONE_DOT: return launch<ONE_DOT>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case ONE_DOT_BF16:
-      return launch<ONE_DOT_BF16>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case I32_STORAGE:
-      return launch<I32_STORAGE>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case FUSED_UNPACK:
-      return launch<FUSED_UNPACK>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
-    case BATCHED_DOT:
-      return launch<BATCHED_DOT>(xq, rs, p, scale, out, M, K, N, G, block_n, st);
+    case FULL: return by_tile<FULL>(a, ntile, tpb, st);
+    case BF16_DOTS: return by_tile<BF16_DOTS>(a, ntile, tpb, st);
+    case NO_UNPACK: return by_tile<NO_UNPACK>(a, ntile, tpb, st);
+    case NO_DOTS: return by_tile<NO_DOTS>(a, ntile, tpb, st);
+    case ONE_DOT: return by_tile<ONE_DOT>(a, ntile, tpb, st);
+    case ONE_DOT_BF16: return by_tile<ONE_DOT_BF16>(a, ntile, tpb, st);
+    case I32_STORAGE: return by_tile<I32_STORAGE>(a, ntile, tpb, st);
+    case FUSED_UNPACK: return by_tile<FUSED_UNPACK>(a, ntile, tpb, st);
+    case BATCHED_DOT: return by_tile<BATCHED_DOT>(a, ntile, tpb, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -54,17 +54,14 @@ namespace {
 using w4mma::NS;
 using w4mma::SMEM_MAX;
 
-constexpr int BM = 64;              // rows per block: 4 m16 tiles
+constexpr int BM = w4mma::MAT_BM;   // rows per block: 4 m16 tiles
 
-// 8 warps for the 32- and 64-column tiles, 4 for the others (measured)
 template <int NTILE>
-constexpr int threads_of() { return NTILE == 32 || NTILE == 64 ? 256 : 128; }
+constexpr int threads_of() { return w4mma::mat_threads<NTILE>(); }
 
-// at most 4 warps across the columns, the rest across the m16 tiles: every
-// warp reads the int8 fragments of its own m16 tiles from shared memory, so
-// fewer warps per row tile read them fewer times (measured faster)
+// the tile (csrc/w4_mma.cuh: MatTile) B6's `i32_storage` mode runs too
 template <int NTILE>
-using Tile = w4mma::Tile<BM, NTILE, threads_of<NTILE>(), (NTILE / 8 < 4 ? NTILE / 8 : 4)>;
+using Tile = w4mma::MatTile<NTILE>;
 
 // the store epilogue: rows < M and columns < N of the block's tile
 template <class TL>

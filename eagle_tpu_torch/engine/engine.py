@@ -339,7 +339,10 @@ class EagleEngine:
                 bonus = ref_next[acc.accept_len]
             else:
                 acc = accept_mod.accept_greedy(tree, logits, P)
-                bonus = torch.argmax(acc.sample_p)
+                # the vanilla rule, argmax of the final node's logits (path
+                # repeats it past the accepted length): an argmax after the
+                # softmax would tie two logits one ulp apart
+                bonus = torch.argmax(logits[acc.path[-1]])
 
         # --- commit tokens + compact KV
         with record_function("round.commit"):
@@ -625,12 +628,12 @@ class EagleEngine:
         with torch.no_grad():
             prompt, Lp, cache, token = self._vanilla_prefill(prompt_ids, temperature)
             out = list(prompt[0])
-            steps = [token]
+            steps = [token][:max_new_tokens]
             for i in range(max_new_tokens - 1):
                 cache, token = self._vanilla_step(cache, token,
                                                   kv_limit=self._kv_limit(Lp + i))
                 steps.append(token)
-            for t in torch.stack(steps).cpu().numpy():
+            for t in (torch.stack(steps).cpu().numpy() if steps else ()):
                 out.append(int(t))
                 if eos_token_id is not None and t == eos_token_id:
                     break

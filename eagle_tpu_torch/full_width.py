@@ -11,6 +11,12 @@ Widths come from configs/llama3_8B_target.json (the public
 Llama-3.1-8B-Instruct config.json values) and configs/llama3_8B_eagle3_config.json.
 The target's lm_head is multiplied by 8 so the random head has argmax
 margins, and the draft shares the target's embedding, as EAGLE-3 does.
+
+`engine_hd64` is the other configuration: the Llama-3.2-1B-class shape of
+the repository's entry point (`__graft_entry__._flagship_cfg`: hidden 2048,
+FFN 8192, 16 layers, 32 q / 8 kv heads of head_dim 64, vocab 32000, rope
+theta 500000), with an EAGLE-3 head at the target's widths, so that the
+tree-verify attention kernel runs at head_dim 64.
 """
 
 from __future__ import annotations
@@ -18,10 +24,11 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
-
 from typing import Optional
 
-from .config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig
+import torch
+
+from .config import CONFIG_DIR, DraftConfig, EngineConfig, ModelConfig, RopeConfig
 from .engine.engine import EagleEngine
 from .models import draft as draft_mod
 from .models import transformer
@@ -43,7 +50,24 @@ def configs() -> tuple[ModelConfig, DraftConfig]:
 def engine(device=None) -> EagleEngine:
     """EagleEngine at full width with both kernels on, at the README's
     operating point: total_tokens=60, depth=5, top_k=10, max_len=2048."""
-    cfg, dcfg = configs()
+    return _engine_of(*configs(), device)
+
+
+def configs_hd64() -> tuple[ModelConfig, DraftConfig]:
+    """The entry point's flagship numbers (copied: that module imports JAX)
+    and an EAGLE-3 head of one layer at the same widths; the draft's
+    vocabulary is the target's 32000, so it needs no d2t map."""
+    rope = RopeConfig(theta=500000.0)
+    cfg = ModelConfig(vocab_size=32000, hidden_size=2048, intermediate_size=8192,
+                      num_layers=16, num_q_heads=32, num_kv_heads=8, head_dim=64,
+                      rope=rope, dtype=torch.bfloat16, attn_impl="pallas_tree")
+    dcfg = DraftConfig(version=3, hidden_size=2048, intermediate_size=8192,
+                       num_q_heads=32, num_kv_heads=8, head_dim=64, vocab_size=32000,
+                       num_layers=1, rope=rope, dtype=torch.bfloat16)
+    return cfg, dcfg
+
+
+def _engine_of(cfg: ModelConfig, dcfg: DraftConfig, device) -> EagleEngine:
     ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=2048,
                         compact_impl="pallas")
     params = transformer.init_params(cfg, seed=SEED, device=device)
@@ -51,6 +75,14 @@ def engine(device=None) -> EagleEngine:
     dparams = draft_mod.init_params(dcfg, seed=SEED + 1, device=device)
     dparams["embed"]["w"] = params["embed"]["w"]
     return EagleEngine(params, cfg, dparams, dcfg, ecfg, device=device)
+
+
+def engine_hd64(device=None) -> EagleEngine:
+    """The bf16 path at the Llama-3.2-1B-class flagship shape (head_dim 64),
+    both attention-side kernels on, at `engine()`'s operating point: B1 runs
+    at head_dim 64 (16 launches a round) and B2 moves 128-byte rows. About
+    2.3 GB of bf16 weights."""
+    return _engine_of(*configs_hd64(), device)
 
 
 def engine_static(device=None, base: Optional[EagleEngine] = None) -> EagleEngine:

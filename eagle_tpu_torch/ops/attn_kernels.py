@@ -99,17 +99,22 @@ def tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
 
 
 # query rows and prefix keys a block of the bf16 kernel: its geometry, which
-# the launch checks against its own
+# the launch checks against its own; the head widths it is built for
 TREE_ROWS, TREE_CHUNK = 64, 256
+TREE_HEAD_DIMS = (64, 128)
 
 
-def tree_plan(T: int, nq: int, n_kv: int, S_rows: int) -> dict:
+def tree_plan(T: int, nq: int, n_kv: int, S_rows: int, d: int) -> dict:
     """Grid of the bf16 kernel from host-known numbers only: (row tiles of
     the T*g query rows of a kv head, prefix chunks + 1 for the tree's own
     keys, n_kv heads). S_rows is the cache's row count (a view's, for a
     row-sliced cache), not its head stride. Prefix chunk c covers keys
     [c*TREE_CHUNK, min((c+1)*TREE_CHUNK, start)); a chunk with no key below
-    the device's `start` exits at once."""
+    the device's `start` exits at once. The grid does not depend on the head
+    width `d`, which must be one the kernels are built for."""
+    if d not in TREE_HEAD_DIMS:
+        raise ValueError(f"tree_attention: head_dim {d} is not built; the kernels "
+                         f"take head_dim {' or '.join(map(str, TREE_HEAD_DIMS))}")
     return {"row_tiles": -(-T * (nq // n_kv) // TREE_ROWS),
             "chunks": -(-S_rows // TREE_CHUNK)}
 
@@ -141,14 +146,14 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
                         f"float32/bfloat16, got {[t.dtype for t in tensors[:5]]}")
     if tree_mask.dtype != torch.bool:
         raise TypeError("tree_attention: tree_mask must be bool")
-    if (d2 != d or d != 128 or nq % n_kv != 0
+    if (d2 != d or nq % n_kv != 0
             or v_cache.shape != k_cache.shape
             or k_tree.shape != (Tk, n_kv, d) or v_tree.shape != k_tree.shape
             or tree_mask.shape != (T, Tk)):
         raise ValueError(
             f"tree_attention: bad shapes q{tuple(q.shape)} "
             f"k_cache{tuple(k_cache.shape)} k_tree{tuple(k_tree.shape)} "
-            f"mask{tuple(tree_mask.shape)} (head_dim must be 128)")
+            f"mask{tuple(tree_mask.shape)}")
     if not all(t.is_contiguous() for t in (q, k_tree, v_tree, tree_mask)):
         raise ValueError("tree_attention: inputs must be contiguous")
     head_stride = _row_stride(k_cache, d, "tree_attention")
@@ -161,7 +166,7 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     # for work queued later on the same stream, so the kernel still has them
     st = _device_int32(start, dev)
     out = torch.empty((T, nq * d), dtype=q.dtype, device=dev)
-    plan = tree_plan(T, nq, n_kv, S)
+    plan = tree_plan(T, nq, n_kv, S, d)
     slots = n_kv * plan["row_tiles"] * (plan["chunks"] + 1)
     if q.dtype == torch.bfloat16:
         part_acc = torch.empty(slots * TREE_ROWS * d, dtype=torch.float32, device=dev)

@@ -33,7 +33,9 @@ from .quant4 import (W4_STAGE_ROWS, W4_STAGES, W4_SMEM_MAX, _blocks_of, _k_of,
 # columns for w4, 64 for w8) and then over the tiles, instead of along the
 # row; a few f32 ulp of a value of magnitude ~10
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
-MAX_ROWS, MAX_K = 32, 16
+# k the kernels take (one column tile), and k up to which the w4 merge holds
+# its candidates in registers (past it: a k-way merge over the tiles)
+MAX_K, SMALL_K = 128, 16
 
 
 def topk_rows(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,28 +75,32 @@ W8_TILE = 64          # columns per block of the w8 tile kernel
 class ScorePlan(NamedTuple):
     """How csrc/score_topk.cu runs one w4 call."""
 
-    bm: int               # rows per block (16 or 32)
+    bm: int               # rows per block (16 or 32; more rows: more row tiles)
     vec: bool             # 16-byte copies (aligned rows, groups, halves, columns)
     grid: tuple           # (row tiles, column tiles)
     smem: int             # dynamic shared memory, bytes
 
 
-def score_plan(M: int, K: int, V: int, G: int) -> ScorePlan:
+def score_plan(M: int, K: int, V: int, G: int, k: int) -> ScorePlan:
     """The launch plan of the w4 scoring kernel, from host-known shapes only:
     the narrowest row tile that holds all M rows (every block reads the
-    head's words once for all of them), 128 columns a block. Its shared
-    memory holds, one after the other in time, the main loop's ring, the
-    tile's logits and the merge's T tile heads per warp."""
-    if not 1 <= M <= MAX_ROWS:
-        raise ValueError(f"score_plan: M={M} rows (1 .. {MAX_ROWS})")
-    bm = next(b for b in SCORE_ROW_TILES if M <= b)
+    head's words once for all of them), 32-row tiles on the grid past 32
+    rows, 128 columns a block. Its shared memory holds, one after the other
+    in time, the main loop's ring, the tile's logits and the merge's state
+    per warp: the T tile heads, and for k > SMALL_K also each tile's next
+    candidate and its position."""
+    if M < 1:
+        raise ValueError(f"score_plan: M={M} rows (at least 1)")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"score_plan: k={k} (1 .. {MAX_K}, one column tile)")
+    bm = next((b for b in SCORE_ROW_TILES if M <= b), SCORE_ROW_TILES[-1])
     T = -(-V // SCORE_NTILE)
     group = K // G
     vec = K % 16 == 0 and group % 16 == 0 and (K // 2) % 16 == 0 and V % 4 == 0
     ring = W4_STAGES * (bm * (4 * W4_STAGE_ROWS + 16) + bm * 4 + SCORE_NTILE * 4
                         + W4_STAGE_ROWS * (SCORE_NTILE + 8) * 4)
     logits = bm * (SCORE_NTILE + 8) * 4
-    heads = SCORE_WARPS * T * 8
+    heads = SCORE_WARPS * T * (20 if k > SMALL_K else 8)
     return ScorePlan(bm, vec, (-(-M // bm), T), max(ring, logits, heads))
 
 
@@ -116,7 +122,7 @@ def w4_score_kernel(xq: torch.Tensor, sx: torch.Tensor, rs: torch.Tensor,
     [M, k] int64). Counts the launch."""
     M, K = xq.shape
     V, G = q4.shape[-1], rs.shape[1]
-    p = score_plan(M, K, V, G)
+    p = score_plan(M, K, V, G, k)
     if p.smem > W4_SMEM_MAX:
         raise ValueError(f"score_topk_quant: V={V} needs {p.smem} B of shared memory")
     dev = xq.device
@@ -180,8 +186,9 @@ def score_topk_quant(h2d: torch.Tensor, qw: dict, k: int):
         raise ValueError(f"{name}: weights must be contiguous")
     if (_k_of(qw) if kind == "w4" else q.shape[0]) != K or K % 8:
         raise ValueError(f"{name}: rows have K={K}, the head {tuple(q.shape)}")
-    if not (1 <= M <= MAX_ROWS and 1 <= k <= min(MAX_K, V)):
-        raise ValueError(f"{name}: M={M} (<= {MAX_ROWS}), k={k} (<= {MAX_K}, <= V={V})")
+    if not (M >= 1 and 1 <= k <= min(MAX_K, V)):
+        raise ValueError(f"{name}: M={M} (>= 1), k={k} (<= {MAX_K}, <= V={V}): k past "
+                         f"{MAX_K}, one column tile, is not built")
     if kind == "w8":
         return _w8_score(h2d, q, scale, k)
     G = scale.shape[0]

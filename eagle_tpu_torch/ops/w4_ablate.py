@@ -2,14 +2,14 @@
 PyTorch versions.
 
 `ablate(mode, ...)` (csrc/w4_ablate.cu) replaces the Pallas kernel
-tools/probe_w4_ablate.py:make_kernel: the `__dp4a` w4a8 body (csrc/w4_dot.cuh,
-the first body; B3/B4 and B5 now run on tensor cores) taken apart into nine
-variants that stream the same packed bytes and differ in the work they do
-on them, so that timing them tells the cost of the nibble unpack, of the
-per-group dots, of the storage format and of the f32 scale accumulation
-apart. Some variants compute "wrong math" on purpose; each is still a
-well-defined function of its inputs, and `ablate_ref(mode, ...)` is its plain
-version.
+tools/probe_w4_ablate.py:make_kernel: the main loop that B3, B4 and B5 run
+(csrc/w4_mma.cuh: int8 tensor cores, a cp.async ring, the f32 chain after
+each group) with one part swapped or taken away in each of nine variants,
+so that timing them tells what the storage format, the nibble unpack, the
+integer dots, the second pass over the words and the f32 scale chain cost
+that loop. `ablate_plan` gives a launch its tile and grid. Some variants
+compute "wrong math" on purpose; each is still a well-defined function of
+its inputs, and `ablate_ref(mode, ...)` is its plain version.
 
 Inputs: xq int8 [M, K]; rs int32 [M, G] (the probe passes 8 x the group row
 sums); s f32 [G, N]; p either uint8 [K/2, N] (byte r = K-row r in its low
@@ -23,7 +23,7 @@ for g < hg, high-half for g >= hg), one rounded multiply and one rounded add
 per term:
 
   full, i32_storage   acc += term(g), g = 0 .. G-1 in order
-  bf16_dots           the same sum, dots as float multiply-adds (exact)
+  bf16_dots           the same sum, dots as bf16 products with f32 sums (exact)
   no_unpack           the same loop on the raw bytes read as int8, both halves
   no_dots             every row = f32 column sum of the low nibbles + that of
                       the high nibbles
@@ -44,16 +44,16 @@ takes the plain version.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _launch
+from .quant4 import W4_BM, W4_SMEM_MAX, W4_STAGES, W4_STAGE_ROWS, w4_plan
 
 MODES = _launch.ABLATE_MODES          # the order of csrc/w4_ablate.cu's enum
 I32_MODES = ("i32_storage", "fused_unpack", "batched_dot")
 _FLOAT_DOT_MODES = ("bf16_dots", "one_dot_bf16")
-_MT, _COLS = 16, 64                   # rows and columns of one block pass
-_MAX_SMEM = 227 * 1024
 
 
 def _planes(mode: str, p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -102,17 +102,62 @@ def ablate_ref(mode: str, xq: torch.Tensor, rs: torch.Tensor, p: torch.Tensor,
     return acc
 
 
-# mode | xq, rs, p, scale, out | M, K, N, G, block_n | stream
-_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+class AblatePlan(NamedTuple):
+    """How csrc/w4_ablate.cu runs one mode."""
+
+    ntile: int            # columns of one column tile (B3's tile, 64 rows)
+    vec: bool             # 16-byte copies
+    grid: tuple           # (row tiles, column blocks of block_n columns)
+    smem: int             # dynamic shared memory, bytes
+
+
+def _ablate_smem(mode: str, ntile: int, G: int) -> int:
+    """The ring of csrc/w4_mma.cuh under the mode's body (w4mma::Slot), and
+    batched_dot's staged group dots behind it."""
+    a_bytes = W4_BM * (4 * W4_STAGE_ROWS + 16)
+    rs_bytes = W4_BM * 4 + ntile * 4
+    if mode in I32_MODES:
+        w_bytes = W4_STAGE_ROWS * (ntile + 8) * 4
+    else:          # byte rows, an odd multiple of 16 B apart, + 16 B of shift
+        w_bytes = 4 * W4_STAGE_ROWS * (48 if ntile <= 32 else ntile + 16) + 16
+    sets = 2 if mode == "fused_unpack" else 1
+    staged = G * W4_BM * ntile * 4 if mode == "batched_dot" else 0
+    return W4_STAGES * (sets * (a_bytes + rs_bytes) + w_bytes) + staged
+
+
+def ablate_plan(mode: str, M: int, K: int, N: int, G: int, block_n: int) -> AblatePlan:
+    """The launch plan of a mode, from host-known shapes only: B3's column
+    tile for the shapes (`w4_plan`, blocks = 1, without its cluster split),
+    halved until it divides `block_n` and, for batched_dot, until the staged
+    dots fit shared memory. A block owns `block_n` columns and walks them one
+    tile at a time."""
+    ntile = w4_plan(M, K, N, G, 1).ntile
+    while block_n % ntile or (mode == "batched_dot" and ntile > 8
+                              and _ablate_smem(mode, ntile, G) > W4_SMEM_MAX):
+        ntile //= 2
+    smem = _ablate_smem(mode, ntile, G)
+    if smem > W4_SMEM_MAX:
+        raise ValueError(f"w4_ablate.{mode}: {G} groups of staged dots do not fit "
+                         f"shared memory ({smem} B)")
+    group = K // G
+    vec = K % 16 == 0 and group % 16 == 0 and (K // 2) % 16 == 0 and N % 4 == 0
+    if mode not in I32_MODES:      # byte rows in 16-byte pieces
+        vec = vec and N % 16 == 0 and ntile >= 16
+    return AblatePlan(ntile, vec, (-(-M // W4_BM), -(-N // block_n)), smem)
+
+
+# mode | xq, rs, p, scale, out | M, K, N, G, block_n | plan (ntile, vec, smem,
+# row tiles, column blocks) | stream
+_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
          + [ctypes.c_void_p])
 
 
 def ablate(mode: str, xq: torch.Tensor, rs: torch.Tensor, p: torch.Tensor,
            s: torch.Tensor, group: int, block_n: int = 256) -> torch.Tensor:
     """One variant of the w4a8 body: f32 [M, N]. `block_n` is the number of
-    columns one thread block owns (a multiple of 64; the probe's values are
-    256, 512, 1024, 1536 and 2048). CUDA tensors run csrc/w4_ablate.cu; CPU
-    tensors run `ablate_ref`."""
+    columns one thread block owns (a multiple of 8; the probe's sweeps use
+    256 .. 2048, and `ablate_plan`'s tile makes `i32_storage` B3's launch).
+    CUDA tensors run csrc/w4_ablate.cu; CPU tensors run `ablate_ref`."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (expected one of {MODES})")
     if xq.device.type == "cpu":
@@ -139,18 +184,20 @@ def ablate(mode: str, xq: torch.Tensor, rs: torch.Tensor, p: torch.Tensor,
         raise ValueError(f"{name}: all tensors must be on one device")
     if not all(t.is_contiguous() for t in (xq, rs, p, s)):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if block_n <= 0 or block_n % _COLS:
-        raise ValueError(f"{name}: block_n={block_n} must be a multiple of {_COLS}")
+    if block_n <= 0 or block_n % 8:
+        raise ValueError(f"{name}: block_n={block_n} must be a multiple of 8")
+    if not i32 and N % 4:
+        raise ValueError(f"{name}: byte-row weights need N % 4 == 0, got N={N}")
     # float dots stay exact while every partial sum is below 2**24
     span = K // 2 if mode == "one_dot_bf16" else group
     if mode in _FLOAT_DOT_MODES and span * 127 * 15 >= 2 ** 24:
         raise ValueError(f"{name}: a dot over {span} rows is not exact in float32")
-    if mode == "batched_dot" and 4 * G * _MT * _COLS > _MAX_SMEM:
-        raise ValueError(f"{name}: {G} groups of staged dots do not fit shared memory")
+    plan = ablate_plan(mode, M, K, N, G, block_n)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     fn = _launch.entry_point("w4_ablate", _ARGS)
     err = fn(MODES.index(mode), xq.data_ptr(), rs.data_ptr(), p.data_ptr(),
-             s.data_ptr(), out.data_ptr(), M, K, N, G, block_n, _launch.stream())
+             s.data_ptr(), out.data_ptr(), M, K, N, G, block_n, plan.ntile,
+             int(plan.vec), plan.smem, *plan.grid, _launch.stream())
     _launch.check_launch(name, err)
     _launch.LAUNCHES[name] += 1
     return out

@@ -1,11 +1,12 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
-    python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8 ...] [--out DIR]
+    python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8|hd64 ...] [--out DIR]
 
 Builds a full-width engine (eagle_tpu_torch/full_width.py: the bf16 path;
 `int4`, the int4 serving path: w4a8 target, int4 draft, fused draft scoring;
 `static`, the 26-node static tree with kv_buckets; `kv8`, the int8 target KV
-cache), prefills a prompt of CONTEXT = 1000 tokens, then, for each path
+cache; `hd64`, the bf16 path at the Llama-3.2-1B-class shape, head_dim 64),
+prefills a prompt of CONTEXT = 1000 tokens, then, for each path
 given (several paths run in turn in one process, the bf16, static and kv8
 engines over one set of weights, so that `--path bf16 static static bf16`
 compares two of them on one card under one host):
@@ -39,7 +40,7 @@ from .ops import attn_kernels as ak
 
 ROUNDS = 12
 CONTEXT = 1000
-PATHS = ("bf16", "int4", "static", "kv8")
+PATHS = ("bf16", "int4", "static", "kv8", "hd64")
 
 
 def _dev_total(evt) -> float:
@@ -155,9 +156,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True)
     engines: dict = {}
     siblings = {"static": full_width.engine_static, "kv8": full_width.engine_kv8}
+    own = {"int4": full_width.engine_int4, "hd64": full_width.engine_hd64}
     for path in paths:
-        if path not in engines and path == "int4":
-            engines[path] = full_width.engine_int4(dev)
+        if path not in engines and path in own:
+            engines[path] = own[path](dev)
         elif path not in engines:
             # static and kv8 are siblings of the bf16 engine: one set of weights
             base = engines["bf16"] = engines.get("bf16") or full_width.engine(dev)

@@ -82,12 +82,12 @@ def test_tree_plan_covers_every_prefix_row_once(T, S_rows, head_rows):
     prefix blocks that attend cover rows [0, start) exactly once, each inside
     its own chunk, and their chunk indices lie inside the grid."""
     nq, n_kv = 32, 8
-    plan = ak.tree_plan(T, nq, n_kv, S_rows)
+    plan = ak.tree_plan(T, nq, n_kv, S_rows, 128)
     rows = T * nq // n_kv
     assert (plan["row_tiles"] - 1) * ak.TREE_ROWS < rows <= plan["row_tiles"] * ak.TREE_ROWS
     ch = ak.TREE_CHUNK
     assert (plan["chunks"] - 1) * ch < S_rows <= plan["chunks"] * ch
-    assert ak.tree_plan(T, nq, n_kv, head_rows)["chunks"] >= plan["chunks"]
+    assert ak.tree_plan(T, nq, n_kv, head_rows, 128)["chunks"] >= plan["chunks"]
     for start in list(range(S_rows + 1)) + [S_rows + 7]:
         covered = []
         for c, k0, k1 in _key_ranges(plan, start, S_rows):
@@ -105,7 +105,7 @@ def _split_merge(q, kc, vc, kt, vt, tm, start):
     n_kv, S, _ = kc.shape
     g = nq // n_kv
     qh = q.reshape(T, n_kv, g, d).permute(1, 2, 0, 3)                   # [h, g, T, d]
-    plan = ak.tree_plan(T, nq, n_kv, S)
+    plan = ak.tree_plan(T, nq, n_kv, S, 128)     # the grid does not depend on d
     parts = []
     for _, k0, k1 in _key_ranges(plan, start, S):
         parts.append((torch.einsum("hgtd,hsd->hgts", qh, kc[:, k0:k1]) * d ** -0.5,
@@ -138,6 +138,36 @@ def test_split_merge_arithmetic_matches_jax(start):
         *[jnp.asarray(a) for a in args], jnp.int32(start)))
     got = _split_merge(*[t(a) for a in args], start)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("start", [0, 255, 256, 700])
+def test_head_dim_64_matches_jax_kernel(start):
+    """B1 at the Llama-3.2-1B class's head layout (32 q / 8 kv heads,
+    head_dim 64): the plain version and the bf16 kernel's split-and-merge
+    arithmetic give the interpreted Pallas kernel's output and
+    tree_attention_xla's in f32 (TOL; the split-and-merge sums in another
+    order, rtol = atol = 1e-5 as above)."""
+    args = _inputs(26, 26, 32, 8, 64, 768, seed=start)
+    st = jnp.int32(start)
+    jargs = [jnp.asarray(a) for a in args]
+    want = np.asarray(pallas_attn.tree_attention_xla(*jargs, st))
+    pallas = np.asarray(pallas_attn.tree_attention(*jargs, st, blk=64, interpret=True))
+    targs = [t(a) for a in args]
+    got = ak.tree_attention(*targs, torch.tensor(start))       # CPU → plain
+    for ref in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    np.testing.assert_allclose(_split_merge(*targs, start).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_tree_plan_takes_head_dims_64_and_128():
+    """The kernels are built for head_dim 64 and 128; any other head_dim is
+    refused before a launch, by a message that names the two."""
+    plans = [ak.tree_plan(61, 32, 8, 2176, d) for d in ak.TREE_HEAD_DIMS]
+    assert ak.TREE_HEAD_DIMS == (64, 128) and plans[0] == plans[1]
+    for d in (32, 96, 256):
+        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+            ak.tree_plan(61, 32, 8, 2176, d)
 
 
 @pytest.mark.parametrize("start,path,alen", [
@@ -247,7 +277,7 @@ def test_cuda_sources_present_and_named():
     assert _build.SOURCES == ("tree_attention", "compact_rows", "w4_matmul",
                               "score_topk", "w4_ablate")
     headers = sorted(n for n in os.listdir(_build.CSRC_DIR) if n.endswith(".cuh"))
-    assert headers == ["ptx.cuh", "w4_dot.cuh", "w4_mma.cuh"]
+    assert headers == ["ptx.cuh", "w4_mma.cuh"]
     for name in _build.SOURCES:
         path = os.path.join(_build.CSRC_DIR, name + ".cu")
         src = open(path).read()
@@ -259,8 +289,9 @@ def test_cuda_sources_present_and_named():
         os.path.join(_build.CSRC_DIR, "w4_matmul.cu")).read()
     assert 'extern "C" int score_topk_w8_launch(' in open(
         os.path.join(_build.CSRC_DIR, "score_topk.cu")).read()
-    # B3/B4 and B5 share one main loop; only B6 still runs the dp4a body
-    for name in ("w4_matmul", "score_topk"):
+    # B3/B4, B5 and B6 share one main loop
+    for name in ("w4_matmul", "score_topk", "w4_ablate"):
         src = open(os.path.join(_build.CSRC_DIR, name + ".cu")).read()
         assert '#include "w4_mma.cuh"' in src and "w4_dot.cuh\"" not in src
-    assert '#include "w4_dot.cuh"' in open(os.path.join(_build.CSRC_DIR, "w4_ablate.cu")).read()
+    assert "w4mma::run<TL, VEC, Store<TL>, B>" in open(
+        os.path.join(_build.CSRC_DIR, "w4_ablate.cu")).read()

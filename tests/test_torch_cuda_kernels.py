@@ -103,6 +103,45 @@ def test_tree_attention_kernel_odd_shape(dev, dtype):
         _b1_check(ak.tree_attention(*args, st), args, st)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [26, 61])
+def test_tree_attention_kernel_head_dim_64(dev, dtype, T):
+    """head_dim 64 (the Llama-3.2-1B class: 32 q / 8 kv heads): start one
+    below, on and one above every prefix chunk edge of a 1024-row view of a
+    2176-row cache, and the full cache, within the B1 tolerances."""
+    g = torch.Generator(device=dev).manual_seed(64 + T)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    rng = np.random.default_rng(64 + T)
+    parents = torch.tensor([0] + [int(rng.integers(0, i)) for i in range(1, T)],
+                           device=dev)
+    kc, vc = r(8, 2176, 64), r(8, 2176, 64)
+    mask = ancestor_mask(parents, T).contiguous()
+    q, kt, vt = r(T, 32, 64), r(T, 8, 64), r(T, 8, 64)
+    ch = ak.TREE_CHUNK
+    before = ak.LAUNCHES["tree_attention"]
+    n = 0
+    for start in [0] + [e + o for e in range(ch, 1025, ch) for o in (-1, 0, 1)]:
+        args = (q, kc[:, :1024], vc[:, :1024], kt, vt, mask)
+        st = torch.tensor(start, device=dev)
+        _b1_check(ak.tree_attention(*args, st), args, st)
+        n += 1
+    for start in (1500, 2176):
+        args = (q, kc, vc, kt, vt, mask)
+        st = torch.tensor(start, device=dev)
+        _b1_check(ak.tree_attention(*args, st), args, st)
+        n += 1
+    assert ak.LAUNCHES["tree_attention"] == before + n
+
+
+def test_tree_attention_kernel_refuses_other_head_dims(dev):
+    r = lambda *s: torch.zeros(s, device=dev, dtype=torch.bfloat16)
+    for d in (32, 96):
+        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+            ak.tree_attention(r(4, 4, d), r(2, 64, d), r(2, 64, d), r(4, 2, d), r(4, 2, d),
+                              torch.ones((4, 4), dtype=torch.bool, device=dev),
+                              torch.tensor(8, device=dev))
+
+
 def test_tree_attention_merge_counters_left_zero(dev):
     """The bf16 kernel's merge counters are zero after every launch, and a
     second stream gets a buffer of its own."""
@@ -379,6 +418,30 @@ def test_score_topk_kernel_ties_across_the_vocabulary(dev, kind):
     assert ids[0].tolist() == [5, 6, 7, 127, 128, 12800, 31999, 300, 0, 1]
 
 
+# past 32 rows (row tiles on the grid) and past k = 16 (the k-way merge), w4
+# and w8, random and with heavy ties (weights on three levels, constant rows)
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+@pytest.mark.parametrize("M,k", [(33, 17), (64, 32), (10, 128), (33, 128), (64, 10), (1, 17)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_score_topk_kernel_many_rows_large_k(dev, kind, M, k, ties):
+    K, V = 4096, 32000 if kind == "w4" else 3000
+    g = torch.Generator(device=dev).manual_seed(M * 131 + k)
+    h = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((K, V), generator=g, device=dev) * 0.05
+    if ties:
+        w = torch.randint(-1, 2, (K, V), generator=g, device=dev) * 0.05
+        h[::2] = 1.0
+    qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+    before = _launch.LAUNCHES["score_topk_quant"]
+    lp, ids = stk.score_topk_quant(h, qw, k)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["score_topk_quant"] == before + 1
+    ref_lp, ref_ids = stk.score_topk_ref(h, qw, k)
+    assert torch.equal(ids, ref_ids)
+    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+    assert all(int(c.abs().sum()) == 0 for c in stk._COUNTERS.values())
+
+
 def test_score_topk_merge_counters_left_zero(dev):
     """The w4 kernel's merge counters are zero after a launch, and after two
     launches on two streams, each with a buffer of its own."""
@@ -409,7 +472,7 @@ def test_score_topk_kernel_refuses_a_foreign_plan(dev):
     g = torch.Generator(device=dev).manual_seed(2)
     qw = tq4.pack_w4(torch.randn((K, V), generator=g, device=dev) * 0.05)
     xq, sx, rs = tq4.quantize_for_w4(torch.randn((M, K), generator=g, device=dev), K // 128)
-    p = stk.score_plan(M, K, V, K // 128)
+    p = stk.score_plan(M, K, V, K // 128, k)
     fn = _launch.entry_point("score_topk", stk._W4_ARGS)
     ws = torch.empty(M * p.grid[1] * (2 + 2 * k), dtype=torch.int32, device=dev)
     cnt = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -422,8 +485,8 @@ def test_score_topk_kernel_refuses_a_foreign_plan(dev):
                  out[1].data_ptr(), M, K, V, K // 128, k, 0, bm, int(p.vec), smem, gm, gn,
                  _launch.stream())
         assert err != 0, (bm, smem, gm, gn)
-    with pytest.raises(ValueError, match="M=33"):
-        stk.score_topk_quant(torch.zeros((33, K), device=dev), qw, k)
+    with pytest.raises(ValueError, match="128"):
+        stk.score_topk_quant(torch.zeros((33, K), device=dev), qw, 129)
 
 
 def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):
@@ -442,7 +505,9 @@ def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):
 @pytest.mark.parametrize("mode", wab.MODES)
 @pytest.mark.parametrize("M,K,N,group,block_n", [
     (32, 4096, 4096, 128, 256), (32, 4096, 4096, 128, 1536), (512, 1024, 512, 128, 512),
-    (5, 256, 200, 32, 128), (7, 512, 64, 16, 64)])
+    (5, 256, 200, 32, 128), (7, 512, 64, 16, 64), (61, 4096, 4096, 128, 16),
+    (512, 4096, 4096, 128, 256), (5, 256, 200, 4, 8), (32, 4096, 4096, 1024, 256),
+    (61, 4096, 1024, 256, 24), (32, 2048, 512, 512, 64)])
 def test_w4_ablate_kernel_bit_identical(dev, mode, M, K, N, group, block_n):
     g = torch.Generator(device=dev).manual_seed(M + N)
     G = K // group
@@ -473,3 +538,20 @@ def test_w4_ablate_kernel_refuses_what_it_cannot_take(dev):
         wab.ablate("i32_storage", xq, rs, p, s, 32)
     with pytest.raises(ValueError, match="one device"):
         wab.ablate("full", xq, rs, p.cpu(), s, 32)
+
+
+@pytest.mark.parametrize("M,N", [(1, 4096), (32, 4096), (61, 4096), (61, 1024), (512, 4096),
+                                 (61, 14336)])
+def test_w4_ablate_i32_storage_is_b3(dev, M, N):
+    """`i32_storage` at `ablate_plan`'s tile with block_n = that tile is the
+    engines' loop: B3's kernel alone gives the same bits."""
+    K, group = 4096, 128
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    qw = tq4.pack_w4(torch.randn((K, N), generator=g, device=dev) * 0.05, group)
+    xq, _, rs = tq4.quantize_for_w4(torch.randn((M, K), generator=g, device=dev), K // group)
+    tile = wab.ablate_plan("i32_storage", M, K, N, K // group, 128).ntile
+    got = wab.ablate("i32_storage", xq, rs, qw["q4"], qw["scale"], group, block_n=tile)
+    want = tq4.w4_kernel("qdense4", xq, rs, qw["q4"], qw["scale"], 1, None)
+    assert tile == tq4.w4_plan(M, K, N, K // group, 1).ntile
+    assert torch.equal(got, want)
+

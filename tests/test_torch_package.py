@@ -62,7 +62,7 @@ def test_no_jax_or_eagle_tpu_imports(path):
 def test_walk_covers_the_quantized_modules_and_kernels():
     rel = {os.path.relpath(p, PKG) for p in _port_sources((".py", ".cu", ".cuh"))}
     assert {"ops/quant.py", "ops/quant4.py", "ops/score_topk.py", "ops/_launch.py",
-            "csrc/w4_matmul.cu", "csrc/score_topk.cu", "csrc/w4_dot.cuh",
+            "csrc/w4_matmul.cu", "csrc/score_topk.cu", "csrc/w4_mma.cuh",
             "csrc/tree_attention.cu", "csrc/compact_rows.cu", "csrc/w4_ablate.cu",
             "ops/w4_ablate.py", "probe_w4_ablate.py", "models/hf_loader.py"} <= rel
 

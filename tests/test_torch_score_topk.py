@@ -106,35 +106,43 @@ def test_score_topk_quant_refuses_what_the_kernel_does_not_take():
 # the w4 kernel's plan and its tile-then-merge arithmetic
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M,K,V,G", [
-    (1, 4096, 32000, 32), (2, 4096, 32000, 32), (10, 4096, 32000, 32),
-    (16, 4096, 32000, 32), (17, 4096, 32000, 32), (32, 4096, 128256, 32),
-    (3, 64, 9, 2), (7, 256, 1000, 16), (1, 64, 70, 8), (32, 512, 130, 16)])
-def test_score_plan_covers_every_column_once(M, K, V, G):
+@pytest.mark.parametrize("M,K,V,G,k", [
+    (1, 4096, 32000, 32, 1), (2, 4096, 32000, 32, 10), (10, 4096, 32000, 32, 10),
+    (16, 4096, 32000, 32, 16), (17, 4096, 32000, 32, 10), (32, 4096, 128256, 32, 16),
+    (3, 64, 9, 2, 4), (7, 256, 1000, 16, 7), (1, 64, 70, 8, 3), (32, 512, 130, 16, 10),
+    (33, 4096, 32000, 32, 17), (64, 4096, 32000, 32, 32), (10, 4096, 32000, 32, 128),
+    (80, 4096, 128256, 32, 128), (1, 256, 130, 2, 128)])
+def test_score_plan_covers_every_column_once(M, K, V, G, k):
     """The plan's column tiles cover [0, V) once and its grid matches them;
-    one row tile holds all M rows; shared memory holds the ring, the logits
-    tile and the merge's heads, within the card's 227 KB; the merge's
-    candidates fit its 8 per lane at every k."""
-    p = tstk.score_plan(M, K, V, G)
+    the narrowest row tile holds M <= 32 rows, 32-row tiles cover more;
+    shared memory holds the ring, the logits tile and the merge's state
+    (the heads; past SMALL_K also each tile's next candidate and its
+    position), within the card's 227 KB; up to SMALL_K the merge's
+    candidates fit its 8 per lane."""
+    p = tstk.score_plan(M, K, V, G, k)
     nt = tstk.SCORE_NTILE
-    assert p.bm == min(b for b in tstk.SCORE_ROW_TILES if b >= M)
-    assert p.grid[0] == 1 and p.grid[0] * p.bm >= M
+    assert p.bm == min((b for b in tstk.SCORE_ROW_TILES if b >= M), default=32)
+    assert p.grid[0] == -(-M // p.bm) and (p.grid[0] - 1) * p.bm < M <= p.grid[0] * p.bm
     T = p.grid[1]
     cols = [c for t in range(T) for c in range(t * nt, min((t + 1) * nt, V))]
     assert cols == list(range(V)) and (T - 1) * nt < V
     ring = tq4.W4_STAGES * (p.bm * (4 * tq4.W4_STAGE_ROWS + 16) + p.bm * 4 + nt * 4
                             + tq4.W4_STAGE_ROWS * (nt + 8) * 4)
-    assert p.smem == max(ring, p.bm * (nt + 8) * 4, tstk.SCORE_WARPS * T * 8)
+    merge = tstk.SCORE_WARPS * T * (20 if k > tstk.SMALL_K else 8)
+    assert p.smem == max(ring, p.bm * (nt + 8) * 4, merge)
     assert p.smem <= tq4.W4_SMEM_MAX
     group = K // G
     assert p.vec == (K % 16 == 0 and group % 16 == 0 and V % 4 == 0)
-    assert all(min(k, T) * k <= 8 * 32 for k in range(1, tstk.MAX_K + 1))
+    assert all(min(j, T) * j <= 8 * 32 for j in range(1, tstk.SMALL_K + 1))
 
 
 def test_score_plan_refuses_what_the_kernel_does_not_take():
-    for M in (0, tstk.MAX_ROWS + 1):
-        with pytest.raises(ValueError, match="rows"):
-            tstk.score_plan(M, 4096, 32000, 32)
+    with pytest.raises(ValueError, match="rows"):
+        tstk.score_plan(0, 4096, 32000, 32, 10)
+    for k in (0, tstk.MAX_K + 1):
+        with pytest.raises(ValueError, match="k="):
+            tstk.score_plan(10, 4096, 32000, 32, k)
+
 
 
 def _ordered(vals, idx):
@@ -200,3 +208,72 @@ def test_tile_merge_arithmetic_matches_jax(V, k, ties):
     jlp, jids = jdrafter.topk_rows(jax.nn.log_softmax(jnp.asarray(x), axis=-1), k)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), **TOL)
+
+
+def _kway_merge(logits, k, nt):
+    """The w4 kernel's rule past SMALL_K, in plain f32 torch: rows in row
+    tiles of 32 (each row on its own), per column tile its max, sum of exp
+    and k best; then a k-way merge of the tiles' sorted lists, each round
+    taking the best head (value desc, index asc) and moving that tile's head
+    on. The logsumexp is `_tile_merge`'s."""
+    M, V = logits.shape
+    T = -(-V // nt)
+    big = 2**31 - 1
+    scores, ids = [], []
+    for r0 in range(0, M, 32):                     # row tiles: rows are independent
+        for m in range(r0, min(r0 + 32, M)):
+            row = logits[m:m + 1]
+            lse = row.max() - _tile_merge(row, 1, nt)[0][0, 0]    # its best score is max - lse
+            pad = torch.full((T * nt,), float("-inf"))
+            pad[:V] = row[0]
+            cols = torch.arange(T * nt)
+            cols = torch.where(cols < V, cols, torch.tensor(big))
+            lists = [_ordered(pad[t * nt:(t + 1) * nt], cols[t * nt:(t + 1) * nt])
+                     for t in range(T)]
+            lists = [(v[:k], i[:k]) for v, i in lists]
+            pos = [0] * T
+            sv, si = [], []
+            for _ in range(k):
+                heads = [(lists[t][0][pos[t]], lists[t][1][pos[t]]) if pos[t] < k
+                         else (torch.tensor(float("-inf")), torch.tensor(big + 1))
+                         for t in range(T)]
+                best = min(range(T), key=lambda t: (-float(heads[t][0]), int(heads[t][1])))
+                sv.append(heads[best][0])
+                si.append(heads[best][1])
+                pos[best] += 1
+            scores.append(torch.stack(sv) - lse)
+            ids.append(torch.stack(si))
+    return torch.stack(scores), torch.stack(ids)
+
+
+@pytest.mark.parametrize("M,k", [(33, 17), (64, 32), (33, 128)])
+def test_row_tiles_and_kway_merge_match_jax_kernel(M, k):
+    """Past 32 rows and past k = 16, which the kernel once refused: the
+    kernel's rule replayed on the port's w4 logits gives the interpreted JAX
+    kernel's ids exactly and its scores within TOL, with heavy ties (weights
+    of -1, 0 or 1 step, half the rows constant: many equal logits in one tile
+    and across tiles)."""
+    rng = np.random.default_rng(M + k)
+    K, V = 64, 700
+    # every product and sum of the w4 logits is exact in f32 (power-of-two
+    # scales: each scale group of each column holds a 7, each row a 127), so
+    # XLA's fused multiply-adds in the interpreted kernel keep the same ties
+    w = rng.integers(-1, 2, size=(K, V)).astype(np.float32)
+    w[::32] = 7.0
+    w *= 2.0 ** -4
+    h = rng.integers(-127, 128, size=(M, K)).astype(np.float32)
+    h[:, 0] = 127.0
+    h[::2] = 127.0
+    h *= 2.0 ** -6
+    jqw, tqw = _heads(w, "w4")
+    logits = tq4.qdense4_ref(t(h), tqw).to(torch.float32)
+    plan = tstk.score_plan(M, K, V, 2, k)          # the kernel takes these shapes
+    assert plan.bm == 32 and plan.grid == (-(-M // 32), -(-V // tstk.SCORE_NTILE))
+    lp, ids = _kway_merge(logits, k, tstk.SCORE_NTILE)
+    klp, kids = jstk.score_topk_quant(jnp.asarray(h), jqw, k, interpret=True)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(kids))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(klp), **TOL)
+    rlp, rids = tstk.score_topk_quant(t(h), tqw, k)      # CPU: the plain version
+    assert torch.equal(rids, ids)
+    assert len(set(np.round(logits.numpy()[0], 6))) < V // 4     # the ties are there
+
