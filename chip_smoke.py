@@ -16,9 +16,11 @@ Phases (any failure exits non-zero):
      blocked layout, and at shapes that make ops/quant4.w4_plan pick each
      kernel instantiation; the fused scorer with identical ids at M = 1, 10,
      17, 32, and at M = 33, 64 with k = 17, 32, 128, random and tied, w4 and
-     w8; the nine ablation variants of the w4a8 body bit for bit at M = 5,
-     32, 61, 512, every block_n of the probe's sweeps, groups 4 to 1024 and
-     a ragged N, `i32_storage` against B3's kernel alone), and time kernel /
+     w8, and past one column tile at k = 129, 256, 1024 and k = V; tree
+     attention also at head_dim 80, 96 and 256; the nine ablation variants
+     of the w4a8 body bit for bit at M = 5, 32, 61, 512, every block_n of
+     the probe's sweeps, groups 4 to 1024 and a ragged N, `i32_storage`
+     against B3's kernel alone), and time kernel /
      plain / library call / bound, with the kernel/library ratios (the fused
      scorer: wrapper, kernel alone and the unfused chain the drafter runs
      without fused scoring, at M = 1, 10, 32 and past them; the ablation
@@ -30,7 +32,13 @@ Phases (any failure exits non-zero):
      across a bucket edge, for an int8 KV cache and for a head_dim-64
      target; generate_stream ends on generate_fused's ids; with two logits
      one ulp apart in every row; generate_vanilla(max_new_tokens=0) returns
-     the prompt;
+     the prompt; sampled engines at sampling_top_k = 1 (one-hot
+     distributions, so every rule is deterministic) equal the greedy
+     vanilla decode under every acceptance rule and tree kind; a round of
+     each of these engines waits on no host sync (torch's sync debug mode
+     "error"); the sampled
+     acceptance rules over 200k trials on the card's generator follow the
+     target's first- and second-token distributions;
   4. the paths at full width (Llama-3.1-8B widths, EAGLE-3 draft, seeded
      random weights made on the card): (a) the bf16 path answers one request
      with generate_fused; (b) over the same weights, the static-tree +
@@ -41,7 +49,11 @@ Phases (any failure exits non-zero):
      scoring) answers two requests; (d) the Llama-3.2-1B-class path at
      head_dim 64 (full_width.engine_hd64, bf16) answers two requests; (e) the
      ablation probe runs its `all` sweep with short chains. (a), (c) and (d)
-     then run the vanilla baseline and a forced replay of its trajectory. Every path starts with the launch
+     then run the vanilla baseline and a forced replay of its trajectory.
+     Sampled requests (temperature 0.7, top_p 0.9, 64 new tokens): the bf16
+     path under "true_q" (its dynamic tree takes the q(x) = 1 rule), the
+     static path under "true_q" (sampled candidates), the int4 path under
+     "true_q_dynamic". Every path starts with the launch
      counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}; the run's own wall time goes to stderr.
@@ -89,6 +101,7 @@ BF16_TOL_F32 = dict(rtol=2.0 ** -8, atol=1e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 T_TREE, NQ, NKV, HD, S_CACHE = 61, 32, 8, 128, 2176   # slice shapes (layer view)
 HD64 = 64                                             # the hd64 path's head_dim
+OTHER_HEAD_DIMS = (80, 96, 256)    # head widths of other families, at padded widths
 L_TGT, PATH = 32, [0, 3, 7, 7, 7, 7, 7]
 T_STATIC = len(MC_SIM_7B_63) + 1                      # the static tree's 26 nodes
 # the kernels an engine can launch (the w4_ablate variants belong to the probe)
@@ -244,12 +257,38 @@ def check_tree_attention(dev, flush) -> dict:
             + (f" and {BF16_TOL_F32} vs plain f32" if dtype == torch.bfloat16 else "")
             + f"; at most {used:.3f} of a limit used")
 
+    # other head widths (80, 96: run at the padded 128; 256 at 256), the bf16
+    # path's T = 61 and 32 q / 8 kv heads, every chunk edge and the full cache
+    for hd in OTHER_HEAD_DIMS:
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            used = 0.0
+            q, kc, vc, kt, vt, tm = inputs(T_TREE, T_TREE, NQ, NKV, S_CACHE, dtype, hd=hd)
+            for view, sts in ((1024, starts), (S_CACHE, [1500, S_CACHE])):
+                args = (q, kc[:, :view], vc[:, :view], kt, vt, tm)
+                for start in sts:
+                    st = torch.tensor(start, device=dev)
+                    got, ref = ak.tree_attention(*args, st), ak.tree_attention_ref(*args, st)
+                    torch.testing.assert_close(got, ref, **tol)
+                    used = max(used, tol_used(got, ref, tol))
+                    if dtype == torch.bfloat16:
+                        ref32 = ak.tree_attention_ref(
+                            *(a.float() if a.is_floating_point() else a for a in args), st)
+                        torch.testing.assert_close(got.float(), ref32, **BF16_TOL_F32)
+                        used = max(used, tol_used(got, ref32, BF16_TOL_F32))
+                        worst_bf16 = max(worst_bf16, max_err(got, ref))
+            log(f"[B1] head_dim {hd} (padded {ak.tree_plan(T_TREE, NQ, NKV, 1024, hd)['head_pad']})"
+                f" {dtype}: every chunk edge of a 1024-row view and the full cache, T = "
+                f"{T_TREE}: within {tol}"
+                + (f" and {BF16_TOL_F32} vs plain f32" if dtype == torch.bfloat16 else "")
+                + f"; at most {used:.3f} of a limit used")
+
     # timing at the main path's shape (bf16, start = 1024) and at the static
     # tree's T = 26, against one SDPA call over the same keys
     start = 1024
     st = torch.tensor([start], dtype=torch.int32, device=dev)  # as the kernel reads it
     res = {}
-    for T, hd in ((T_TREE, HD), (T_STATIC, HD), (T_TREE, HD64)):
+    for T, hd in ((T_TREE, HD), (T_STATIC, HD), (T_TREE, HD64),
+                  *((T_TREE, d) for d in OTHER_HEAD_DIMS)):
         args = inputs(T, T, NQ, NKV, S_CACHE, torch.bfloat16, hd=hd)
         q, kc, vc, kt, vt, tm = args
         ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
@@ -281,7 +320,8 @@ def check_tree_attention(dev, flush) -> dict:
             "source": "eagle_tpu_torch/csrc/tree_attention.cu",
             "replaces": "eagle_tpu/ops/pallas_attn.py:32",
             "max_abs_err": worst_bf16, **r, "at_T26": res[T_STATIC, HD],
-            "at_head_dim_64": res[T_TREE, HD64]}
+            "at_head_dim_64": res[T_TREE, HD64],
+            **{f"at_head_dim_{d}": res[T_TREE, d] for d in OTHER_HEAD_DIMS}}
 
 
 def check_compact_rows(dev, flush) -> dict:
@@ -627,6 +667,33 @@ def check_score_topk(dev, flush) -> dict:
             f"tied logits; scores max abs err so far {worst:.3e} (tolerance "
             f"{stk.SCORE_TOL})")
 
+    # past one column tile (k > 128: the logits pass and the radix select):
+    # k = 129, 256, 1024 at V = 32000, and k = V of a small head (V = 1000),
+    # w4 and w8, random and tied logits
+    for kind in ("w4", "w8"):
+        pack = tq4.pack_w4 if kind == "w4" else tq.quantize_linear
+        tw = torch.randint(-1, 2, (K, V), generator=gen, device=dev).float().mul_(0.05)
+        sw = torch.randn((256, 1000), generator=gen, device=dev).mul_(0.05)
+        cases = [(heads[kind], K, kk, False) for kk in (129, 256, 1024)]
+        cases += [(pack(tw), K, kk, True) for kk in (129, 1024)]
+        cases += [(pack(sw), 256, 1000, False)]
+        for qw, Kc, kk, ties in cases:
+            for M in (1, 10, 33):
+                h = torch.randn((M, Kc), generator=gen, device=dev).to(torch.bfloat16)
+                if ties:
+                    h[::2] = 1.0
+                lp, ids = stk.score_topk_quant(h, qw, kk)
+                ref_lp, ref_ids = stk.score_topk_ref(h, qw, kk)
+                torch.cuda.synchronize()
+                if not torch.equal(ids, ref_ids):
+                    fail(f"[B5] {kind} M={M} k={kk} ties={ties}: ids differ from "
+                         f"score_topk_ref")
+                torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
+                worst = max(worst, max_err(lp, ref_lp))
+        log(f"[B5] {kind}: select route ids identical at M = 1, 10, 33 x k = 129, 256, 1024 "
+            f"(V = 32000, random; 129, 1024 tied) and k = V = 1000; scores max abs err so "
+            f"far {worst:.3e} (tolerance {stk.SCORE_TOL})")
+
     def unfused(h, qw, kk=k):
         # what drafter.score_topk runs with fuse_scoring=False: B3, the cast,
         # log_softmax and the stable top-k
@@ -635,7 +702,8 @@ def check_score_topk(dev, flush) -> dict:
 
     res = {}
     for kind, M, k in (("w8", 10, 10), ("w4", 1, 10), ("w4", 10, 10), ("w4", 32, 16),
-                       ("w4", 64, 32), ("w4", 10, 128)):
+                       ("w4", 64, 32), ("w4", 10, 128), ("w4", 10, 129), ("w4", 10, 256),
+                       ("w4", 10, 1024)):
         qw = heads[kind]
         h = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         ms = device_time_ms(lambda: stk.score_topk_quant(h, qw, k), flush=flush)
@@ -662,8 +730,9 @@ def check_score_topk(dev, flush) -> dict:
         if not torch.equal(ids, u_ids):
             fail(f"[B5] w4 M={M}: ids differ from the unfused chain")
         torch.testing.assert_close(lp, u_lp, **stk.SCORE_TOL)
+        route = "one kernel" if k <= stk.MAX_K else "logits pass + select"
         log(f"[B5] w4 [{M},{K}]x[{K},{V}] k={k} bf16 rows: wrapper (row quantization + "
-            f"one kernel) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, unfused chain "
+            f"{route}) {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, unfused chain "
             f"(qdense4, cast, log_softmax, topk_rows) {unfused_ms:.4f} ms, wrapper/unfused "
             f"{ms / unfused_ms:.3f}, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}; {nbytes} B); {stk.score_plan(M, K, V, K // 128, k)}")
@@ -677,7 +746,8 @@ def check_score_topk(dev, flush) -> dict:
                             "topk_rows)",
             "shape": f"w4 [10,{K}]x[{K},{V}] k=10 bf16 rows",
             "at_M1": res[1, 10], "at_M32_k16": res[32, 16], "at_M64_k32": res[64, 32],
-            "at_M10_k128": res[10, 128], "w8": res["w8"]}
+            "at_M10_k128": res[10, 128], "at_M10_k129": res[10, 129],
+            "at_M10_k256": res[10, 256], "at_M10_k1024": res[10, 1024], "w8": res["w8"]}
 
 
 def check_w4_ablate(dev, flush) -> list[dict]:
@@ -786,10 +856,28 @@ def check_w4_ablate(dev, flush) -> list[dict]:
 # phase 3: greedy speculative == vanilla in fp32 with the kernels on
 # ---------------------------------------------------------------------------
 
-def check_exactness(dev) -> None:
-    """fp32: generate == generate_fused == generate_vanilla for (a) the dense
-    target, (b) an int4 target + int4 draft + fused scoring, (c) the dense
-    target with an int8 draft + fused scoring. Every kernel must launch."""
+def check_round_without_sync(label: str, eng: EagleEngine, prompt) -> None:
+    """Two rounds of `eng` after a warm-up one, under torch's sync debug mode
+    "error": any op of a round that waits on the host (a device value read
+    there, a copy from pageable host memory) raises."""
+    _, _, st = eng._start(prompt, None, seed=0)
+    kv_limit = eng._kv_limit(len(prompt) + 3 * eng.path_len)
+    with torch.no_grad():
+        st, _ = eng._round(st, kv_limit=kv_limit)       # first use: builds, caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                st, _ = eng._round(st, kv_limit=kv_limit)
+        except RuntimeError as e:
+            fail(f"{label}: a round waits on the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def fp32_configs() -> tuple[ModelConfig, DraftConfig]:
+    """Phase 3's small fp32 target and EAGLE-3 draft (a reduced draft
+    vocabulary), tree-verify attention on."""
     cfg = ModelConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
                       num_layers=4, num_q_heads=8, num_kv_heads=2, head_dim=128,
                       dtype=torch.float32, attn_impl="pallas_tree")
@@ -797,6 +885,14 @@ def check_exactness(dev) -> None:
                        num_q_heads=8, num_kv_heads=2, head_dim=128,
                        vocab_size=1024, draft_vocab_size=512,
                        target_hidden_size=512, dtype=torch.float32)
+    return cfg, dcfg
+
+
+def check_exactness(dev) -> None:
+    """fp32: generate == generate_fused == generate_vanilla for (a) the dense
+    target, (b) an int4 target + int4 draft + fused scoring, (c) the dense
+    target with an int8 draft + fused scoring. Every kernel must launch."""
+    cfg, dcfg = fp32_configs()
     ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=512,
                         compact_impl="pallas")
     params = transformer.init_params(cfg, seed=10, device=dev)
@@ -832,7 +928,9 @@ def check_exactness(dev) -> None:
         idle = [k for k in must_launch if ak.LAUNCHES[k] == 0]
         if idle:
             fail(f"fp32 {label}: kernels never launched: {idle} ({ak.LAUNCHES})")
-        log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}")
+        check_round_without_sync(f"fp32 {label}", eng, prompts[1])
+        log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}; a round waits on no host "
+            f"sync")
 
     # this slice's engine options, over the dense target (kernel options on)
     long_prompt = rng.integers(0, cfg.vocab_size, 400)
@@ -869,8 +967,10 @@ def check_exactness(dev) -> None:
         if idle or busy:
             fail(f"fp32 {label}: launches {_nonzero(ak.LAUNCHES)}; never launched {idle}, "
                  f"launched against an int8 cache {busy}")
+        check_round_without_sync(f"fp32 {label}", eng, prompts[1])
         log(f"[exact] {label}: launches {_nonzero(ak.LAUNCHES)}"
-            + (f", buckets used {sorted(used)}" if bucketed else ""))
+            + (f", buckets used {sorted(used)}" if bucketed else "")
+            + "; a round waits on no host sync")
 
     # no new tokens: both vanilla paths return the prompt alone
     for fused in (False, True):
@@ -926,6 +1026,158 @@ def check_exactness(dev) -> None:
         f"generate == generate_fused == vanilla; launches {_nonzero(ak.LAUNCHES)}")
 
 
+def check_sampled_exactness(dev) -> None:
+    """Sampled engines at sampling_top_k = 1 (temperature 0.8): the processed
+    distributions are one-hot, so every acceptance rule and every draw is
+    deterministic and the output must be the greedy vanilla decode, in fp32
+    with the kernels on: the dense target under "true_q" (dynamic tree: the
+    q(x) = 1 rule) and "q1", the int4 target + int4 draft + fused scoring
+    under "true_q_dynamic", the static tree under "true_q" (sampled
+    candidates, the true-q rule) and the dynamic tree under
+    "true_q_dynamic". An engine built without `device` runs on the card and
+    draws its noise there."""
+    cfg, dcfg = fp32_configs()
+    greedy = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=512,
+                          compact_impl="pallas")
+    hot = dict(temperature=0.8, sampling_top_k=1)
+    params = transformer.init_params(cfg, seed=10, device=dev)
+    dparams = draft_mod.init_params(dcfg, seed=11, device=dev)
+    params4 = tq4.quantize_target_params4(params)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 130)]
+    van = {}
+    for tag, tparams in (("dense", params), ("int4", params4)):
+        eng = EagleEngine(tparams, cfg, dparams, dcfg, greedy, device=dev)
+        van[tag] = [eng.generate_vanilla(p, max_new_tokens=48) for p in prompts]
+    attn = ("tree_attention", "compact_rows")
+    cases = (
+        ("dense target, dynamic tree, true_q (the q1 rule)", "dense",
+         dict(acceptance="true_q"), attn),
+        ("dense target, dynamic tree, q1", "dense", dict(acceptance="q1"), attn),
+        ("dense target, dynamic tree, true_q_dynamic", "dense",
+         dict(acceptance="true_q_dynamic"), attn),
+        ("dense target, static tree, true_q", "dense",
+         dict(acceptance="true_q", tree_paths=MC_SIM_7B_63), attn),
+        ("int4 target, int4 draft, fused scoring, true_q_dynamic", "int4",
+         dict(acceptance="true_q_dynamic", draft_quant="int4", fuse_scoring=True),
+         ENGINE_KERNELS))
+    for label, tag, kw, must_launch in cases:
+        e = dataclasses.replace(greedy, **hot, **kw)
+        eng = EagleEngine(params4 if tag == "int4" else params, cfg, dparams, dcfg, e)
+        if eng.device.type != "cuda" or eng._request(None, 0)[1].device.type != "cuda":
+            fail(f"sampled {label}: the engine or its generator is not on the card")
+        ak.reset_launch_counts()
+        for i, prompt in enumerate(prompts):
+            want = van[tag][i]
+            outs = {"generate": eng.generate(prompt, max_new_tokens=48, seed=i),
+                    "generate_fused": eng.generate_fused(prompt, max_new_tokens=48,
+                                                         seed=i + 7)}
+            for name, out in outs.items():
+                if not np.array_equal(out, want):
+                    bad = int(np.argmax(out[: len(want)] != want[: len(out)]))
+                    fail(f"sampled top_k=1 {label}: {name} != greedy vanilla (prompt "
+                         f"{len(prompt)}, index {bad})")
+        idle = [k for k in must_launch if ak.LAUNCHES[k] == 0]
+        if idle:
+            fail(f"sampled {label}: kernels never launched: {idle} ({ak.LAUNCHES})")
+        check_round_without_sync(f"sampled {label}", eng, prompts[1])
+        log(f"[sampled] top_k=1, t=0.8, {label}: generate == generate_fused == greedy "
+            f"vanilla at prompts {[len(p) for p in prompts]}; launches "
+            f"{_nonzero(ak.LAUNCHES)}; a round waits on no host sync")
+
+
+MC_V, MC_TRIALS = 16, 200_000
+
+
+def check_sampled_mc(dev) -> None:
+    """The acceptance rules on the card's own generator, 200k trials batched
+    over a leading trial dimension (the tree and the tolerances of
+    tests/test_losslessness_mc.py): accept_sampled's first token (3 sigma +
+    1e-3 a bin) and second token given each in-tree first token (4 sigma +
+    2e-3) follow the target; accept_sampled_true_q over trees sampled from a
+    draft Q != P gives P's first token (4 sigma + 1e-3) and second token
+    (5 sigma + 3e-3)."""
+    from eagle_tpu_torch.engine import accept as accept_mod
+    from eagle_tpu_torch.engine.sampling import U_MIN, categorical, process_logits
+    from eagle_tpu_torch.ops.tree import Tree, build_tree, children_table
+
+    V, n = MC_V, MC_TRIALS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(123)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    parents = torch.tensor([0, 0, 0, 0, 1, 1, 2, 4], device=dev)
+    rows = torch.arange(n, device=dev)
+
+    def emitted(tokens, acc, path_len):
+        toks = tokens.gather(1, acc.path) if tokens.dim() == 2 else tokens[acc.path]
+        seq = torch.cat([toks[:, 1:], torch.zeros((n, 1), dtype=torch.long, device=dev)], 1)
+        seq[rows, acc.accept_len] = categorical(acc.sample_p, rand(n, V).clamp_min(U_MIN))
+        return seq
+
+    def check(seq, table, first, t1s, tol1, tol2, ecfg, label):
+        probs = lambda tok: torch.softmax(process_logits(table[tok], ecfg.temperature,
+                                                         ecfg.sampling_top_k, ecfg.top_p),
+                                          dim=-1).cpu().numpy()
+        seqs = seq.cpu().numpy()
+        p = probs(first)
+        emp = np.bincount(seqs[:, 0], minlength=V) / n
+        dev1 = np.abs(emp - p) - (tol1[0] * np.sqrt(np.maximum(p * (1 - p), 1e-12) / n)
+                                  + tol1[1])
+        worst = float(dev1.max())
+        for t1 in t1s:
+            sel = seqs[:, 0] == t1
+            if sel.sum() < 5000:
+                continue
+            p2 = probs(t1)
+            emp2 = np.bincount(seqs[sel, 1], minlength=V) / sel.sum()
+            dev2 = np.abs(emp2 - p2) - (tol2[0] * np.sqrt(np.maximum(p2 * (1 - p2), 1e-12)
+                                                          / sel.sum()) + tol2[1])
+            worst = max(worst, float(dev2.max()))
+        if worst > 0:
+            fail(f"[mc] {label}: an empirical frequency is {worst:.4f} past its tolerance")
+        log(f"[mc] {label}: {n} trials on the card, first token and second token given "
+            f"the first within tolerance (margin {-worst:.4f})")
+
+    # q(x) = 1 over a fixed tree: root(3) -> {5, 1, 7}; 5 -> {2, 9}; 1 -> {4}; 2 -> {11}
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(0, 1.5, size=(V, V)).astype(np.float32)).to(dev)
+    tokens = torch.tensor([3, 5, 1, 7, 2, 9, 4, 11], device=dev)
+    tree = build_tree(tokens, parents, k=3, max_depth=4)
+    for ecfg in (EngineConfig(temperature=1.0), EngineConfig(temperature=0.7),
+                 EngineConfig(temperature=1.0, top_p=0.8),
+                 EngineConfig(temperature=0.9, sampling_top_k=8)):
+        acc = accept_mod.accept_sampled(tree, table[tokens], rand(n, 4, 3), ecfg, 5)
+        check(emitted(tokens, acc, 5), table, 3, [5, 1, 7], (3, 1e-3), (4, 2e-3), ecfg,
+              f"accept_sampled t={ecfg.temperature} top_p={ecfg.top_p} "
+              f"top_k={ecfg.sampling_top_k}")
+
+    # true q over trees sampled without replacement from a draft Q != P
+    rng = np.random.default_rng(7)
+    ptab = torch.from_numpy(rng.normal(0, 1.5, size=(V, V)).astype(np.float32)).to(dev)
+    qtab = torch.softmax(torch.from_numpy(
+        rng.normal(0, 1.0, size=(V, V)).astype(np.float32)).to(dev), dim=-1)
+    ecfg = EngineConfig(temperature=1.0, acceptance="true_q")
+    toks = torch.zeros((n, 8), dtype=torch.long, device=dev)
+    toks[:, 0] = 3
+    node_probs = torch.zeros((n, 8, V), device=dev)
+    for node, childs in ((0, [1, 2, 3]), (1, [4, 5]), (2, [6]), (4, [7])):
+        q = qtab[toks[:, node]]
+        g = -torch.log(-torch.log(rand(n, V).clamp_min(U_MIN)))
+        node_probs[:, node] = q
+        toks[:, childs] = torch.topk(torch.log(q) + g, len(childs), dim=-1).indices
+    tree = Tree(tokens=toks, parents=parents, mask=None, positions=None,
+                children=children_table(parents, 3), node_probs=node_probs)
+    acc = accept_mod.accept_sampled_true_q(tree, ptab[toks], rand(n, 4, 3), ecfg, 5)
+    seq = emitted(toks, acc, 5)
+    for j in range(1, 4):      # past the emission: ancestral samples from P
+        nxt = categorical(torch.softmax(ptab[seq[:, j - 1]], dim=-1),
+                          rand(n, V).clamp_min(U_MIN))
+        seq[:, j] = torch.where(j <= acc.accept_len, seq[:, j], nxt)
+    if float(acc.accept_len.float().mean()) <= 0.05:
+        fail("[mc] accept_sampled_true_q accepts almost nothing")
+    check(seq, ptab, 3, range(V), (4, 1e-3), (5, 3e-3), ecfg, "accept_sampled_true_q")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
@@ -943,7 +1195,12 @@ def expected_launches(eng, requests: int, rounds: int) -> dict:
         exp["qdense4_stacked"] = len(eng.params["stacked4"]) * L * forwards
         # lm_head once per target forward; a draft round is one extension
         # forward (fc, wqkv, wo, wgu, w_down) and `depth` beam forwards (no fc)
-        exp["qdense4"] = forwards + (5 + 4 * depth) * draft_rounds
+        per_draft = 5 + 4 * depth
+        if eng.sampled and eng.ecfg.acceptance == "true_q_dynamic":
+            # two-pass drafting: the root's head, then depth + 1 level
+            # forwards of the whole tree (4 each) and the head at `depth` of them
+            per_draft += 1 + 4 * (depth + 1) + depth
+        exp["qdense4"] = forwards + per_draft * draft_rounds
         exp["score_topk_quant"] = (depth + 1) * draft_rounds
     return exp
 
@@ -1041,6 +1298,48 @@ def main_path(dev, label: str, build, prompt_lens) -> tuple[dict, dict, EagleEng
     }
     log(f"[{label}] {json.dumps(stats)}")
     return launches, stats, eng
+
+
+SAMPLED = dict(temperature=0.7, top_p=0.9)
+
+
+def sampled_path(dev, label: str, eng: EagleEngine, acceptance: str, card: str,
+                 repeat: bool = False) -> dict:
+    """One sampled request (SAMPLED, 64 new tokens, a 311-token prompt)
+    through generate_fused on a sibling of `eng` with `acceptance`, after a
+    warm-up; its launch counts against the path's own expected numbers;
+    `repeat`: the same seed again gives the same tokens. Logs its rate beside
+    `card` (nvidia-smi's name and power limit). Returns the counts."""
+    eng = eng._sibling(acceptance=acceptance, **SAMPLED)
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(0, eng.cfg.vocab_size, 311)
+    new = 64
+    eng.generate_fused(prompt[:8], max_new_tokens=8, seed=1)          # warm-up
+    torch.cuda.synchronize()
+    ak.reset_launch_counts()
+    t0 = time.time()
+    out, n, rounds = eng.generate_fused(prompt, max_new_tokens=new, log=True, seed=7)
+    torch.cuda.synchronize()
+    spec_s = time.time() - t0
+    launches = dict(ak.LAUNCHES)
+    if len(out) != len(prompt) + new or not np.array_equal(out[:311], prompt) \
+            or out.min() < 0 or out.max() >= eng.cfg.vocab_size:
+        fail(f"[{label}] sampled request returned {len(out)} tokens or ids outside the "
+             f"vocabulary")
+    exp = (_attn_launches(eng, rounds) if "stacked4" not in eng.params
+           else expected_launches(eng, 1, rounds))
+    if launches != exp:
+        fail(f"[{label}] sampled launches {_nonzero(launches)}, expected {_nonzero(exp)} "
+             f"for {rounds} rounds")
+    log(f"[{label}] " + json.dumps({
+        "card": card, "path": label, "acceptance": acceptance, **SAMPLED,
+        "prompt": len(prompt), "new_tokens": new, "tokens_per_s": new / spec_s,
+        "rounds": rounds, "tau": n / rounds, "launches": _nonzero(launches),
+        "weights": "random (seeded), lm_head x8"}))
+    if repeat and not np.array_equal(eng.generate_fused(prompt, max_new_tokens=new, seed=7),
+                                     out):
+        fail(f"[{label}] the same seed gave other tokens")
+    return launches
 
 
 def _attn_launches(eng, rounds: int) -> dict:
@@ -1206,13 +1505,19 @@ def main() -> None:
     del flush
     torch.cuda.empty_cache()
     check_exactness(dev)
+    check_sampled_exactness(dev)
+    check_sampled_mc(dev)
     bf16_launches, _, eng = main_path(dev, "bf16", full_width.engine, (24,))
+    sampled = {"bf16": sampled_path(dev, "sampled bf16", eng, "true_q", card, repeat=True)}
     static_launches = static_path(dev, eng)
+    sampled["static"] = sampled_path(dev, "sampled static",
+                                     full_width.engine_static(dev, base=eng), "true_q", card)
     kv8_path(dev, eng)
     calibrate_path(dev, eng)
     del eng
     torch.cuda.empty_cache()
     launches, _, eng = main_path(dev, "int4", full_width.engine_int4, (24, 977))
+    sampled["int4"] = sampled_path(dev, "sampled int4", eng, "true_q_dynamic", card)
     del eng
     torch.cuda.empty_cache()
     hd64_launches, _, eng = main_path(dev, "hd64", full_width.engine_hd64, (24, 977))
@@ -1230,11 +1535,18 @@ def main() -> None:
             k["launches_bf16_path"] = bf16_launches[k["name"]]
             k["launches_static_path"] = static_launches[k["name"]]
             k["launches_hd64_path"] = hd64_launches[k["name"]]
+            for path, counts in sampled.items():
+                k[f"launches_sampled_{path}_path"] = counts[k["name"]]
         if k["launches"] == 0:
             fail(f"{k['name']} was never launched on its path")
     for name in ("tree_attention", "compact_rows"):
         if bf16_launches[name] == 0 or static_launches[name] == 0 or hd64_launches[name] == 0:
             fail(f"{name} was never launched on the bf16, static-tree or hd64 path")
+        if any(counts[name] == 0 for counts in sampled.values()):
+            fail(f"{name} was never launched on a sampled path")
+    idle = [k for k in ENGINE_KERNELS if sampled["int4"][k] == 0]
+    if idle:
+        fail(f"the sampled int4 path never launched {idle}")
     log(f"[smoke] whole run, kernels' build included: {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

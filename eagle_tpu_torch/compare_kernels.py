@@ -1,5 +1,5 @@
-"""Kernel-alone times of B2, B3, B4 and B5 on one NVIDIA GPU, to compare two
-trees of this repository on one card.
+"""Kernel-alone times of B1, B2, B3, B4 and B5 on one NVIDIA GPU, to compare
+two trees of this repository on one card.
 
     python -m eagle_tpu_torch.compare_kernels [--trees DIR [DIR ...]]
 
@@ -9,7 +9,10 @@ each time in a process of its own that imports that tree's package, and
 prints one JSON line per run: `--trees OLD . . OLD` takes two versions in
 turns on one card.
 
-Shapes are the main path's: B2 [32,1,8,2176,128] bf16, P = 7 (the
+Shapes are the main path's: B1 bf16, T = 61 queries (and the static
+tree's 26) of 32 q / 8 kv heads against a 2176-row cache at start 1024,
+head_dim 128 and 64 (and, where the tree takes it, 96 and 256); B2
+[32,1,8,2176,128] bf16, P = 7 (the
 overlapping path [0,3,7,7,7,7,7], and the identity path, which moves no row
 in this tree), beside the harness's floor (one launch of a one-element
 `zero_`); B3 lm_head
@@ -90,6 +93,21 @@ def time_kernels() -> dict:
 
     def rows(M, K):
         return torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    # B1: random ancestor masks
+    from eagle_tpu_torch.ops.tree import ancestor_mask
+    rng = np.random.default_rng(0)
+    st = torch.tensor([1024], dtype=torch.int32, device=dev)
+    widths = [(61, 128), (26, 128), (61, 64)]
+    if hasattr(ak, "TREE_MAX_HEAD_DIM"):
+        widths += [(61, 96), (61, 256)]
+    for T, hd in widths:
+        parents = torch.tensor([0] + [int(rng.integers(0, i)) for i in range(1, T)],
+                               device=dev)
+        a = [rows(T * 32, hd).reshape(T, 32, hd), rows(8 * 2176, hd).reshape(8, 2176, hd),
+             rows(8 * 2176, hd).reshape(8, 2176, hd), rows(T * 8, hd).reshape(T, 8, hd),
+             rows(T * 8, hd).reshape(T, 8, hd), ancestor_mask(parents, T).contiguous()]
+        out[f"B1 T={T} d={hd}"] = time_ms(lambda: ak.tree_attention(*a, st))
 
     # B2
     shape = (32, 1, 8, 2176, 128)

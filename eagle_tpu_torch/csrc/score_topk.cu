@@ -5,7 +5,7 @@
 // the drafter's beam loop runs once per scoring stage when
 // EngineConfig.fuse_scoring is on and the draft's lm_head is quantized.
 //
-// Computes, for M hidden rows against a quantized lm_head [K, V], k <= 128:
+// Computes, for M hidden rows against a quantized lm_head [K, V], any k <= V:
 //   logits = w4: acc * sx, acc the w4a8 sum of csrc/w4_mma.cuh (ops/quant4's
 //                order of f32 sums, bit for bit)
 //            w8: (float(int32 dot) * sx) * scale      (ops/quant.qdense's order)
@@ -56,6 +56,22 @@
 // The plan (row tile, 16-byte copies, merge, shared memory, grid) is the wrapper's
 // (ops/score_topk.score_plan); a launch checks it and refuses any other.
 //
+// k > 128 (past one column tile's candidates) takes a second route, in the
+// same entry points, with two launches:
+//   1. the tile pass writes the M x V logits (rounded as above) to a
+//      workspace instead of reducing them: `score_logits_kernel` runs the w4
+//      main loop with a store epilogue; the w8 tile kernel stores its tile;
+//   2. `select_kernel`, one block of 1024 threads a row: the row's
+//      logsumexp (max, then sum of exp), then an exact radix select of the
+//      k-th best (key, index) pair, 8 bits a pass from the top of a 64-bit
+//      key (the value's order-preserving key, then the complement of the
+//      index: ties go to the lower index), stopping as soon as every
+//      candidate left is taken; the k winners are gathered (an atomic
+//      counter in shared memory) and put in order by a bitonic sort, in
+//      shared memory up to 8192 of them, past that in a workspace.
+//   What bounds it: the logits' round trip (8 bytes a logit) and the
+//   selection's passes over each row (in L2 at V = 32000).
+//
 // The w8 head keeps its first body: a tile kernel of 64 columns (byte
 // gathers with stride V, four rows' bytes per dp4a) and a merge kernel of
 // one block per row (k rounds over every tile's k candidates, for any M and
@@ -82,7 +98,9 @@ constexpr int S_WARPS = S_NT / 32;
 constexpr int LD = S_NTILE + 8;         // floats per row of the logits tile
 constexpr int MERGE_CHUNK = 8;          // tiles a merging lane loads at once
 constexpr int SMALL_K = 16;             // k up to which the merge holds its candidates in registers
-constexpr int MAX_K = 128;              // one column tile
+constexpr int MAX_K = 128;              // one column tile; past it, the select route
+constexpr int SEL_NT = 1024;            // threads of a select block (one row)
+constexpr int SORT_SMEM = 8192;         // candidates the select sorts in shared memory
 
 template <int BM>
 using STile = w4mma::Tile<BM, S_NTILE, S_NT, S_WARPS>;
@@ -416,6 +434,185 @@ __global__ void __launch_bounds__(S_NT) score_mma_kernel(const __grid_constant__
   }
 }
 
+// ---------------------------------------------------------------------------
+// k > MAX_K: the logits to a workspace, then an exact select per row
+// ---------------------------------------------------------------------------
+
+// the epilogue of the select route: the tile's logits (as Logits rounds
+// them) to out [M, V]
+template <class TL>
+struct LogitsOut {
+  float* out;
+  const float* sx;
+  int M, V, cast_bf16;
+  __device__ __forceinline__ void operator()(float (&acc)[TL::MPW][TL::NPW][4],
+                                             bool (&live)[TL::MPW],
+                                             const w4mma::Frag<TL>& fr) const {
+    const int m0 = blockIdx.x * TL::BM, n0 = blockIdx.y * TL::NTILE;
+#pragma unroll
+    for (int mi = 0; mi < TL::MPW; ++mi) {
+      if (!live[mi]) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + fr.row0(mi) + 8 * h;
+        if (row >= M) continue;
+        const float s = __ldg(sx + row);
+#pragma unroll
+        for (int ni = 0; ni < TL::NPW; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + fr.col0(ni) + e;
+            if (col >= V) continue;
+            float v = __fmul_rn(acc[mi][ni][2 * h + e], s);
+            if (cast_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+            out[(size_t)row * V + col] = v;
+          }
+      }
+    }
+  }
+};
+
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(S_NT) score_logits_kernel(const __grid_constant__ ScoreParams p,
+                                                            float* __restrict__ logits) {
+  using TL = STile<BM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  LogitsOut<TL> epi = {logits, p.s.sx, p.a.M, p.s.V, p.s.cast_bf16};
+  w4mma::run<TL, VEC>(p.a, smem, epi);
+}
+
+// the block's reduction of one float (max or sum) into every thread
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();                      // red is free
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < SEL_NT / 32 ? red[lane] : (MAX ? -CUDART_INF_F : 0.0f);
+  return MAX ? warp_max(v) : warp_sum(v);
+}
+
+// (the value's key, the complement of the index): ordered like (value desc,
+// index asc), unique per row
+__device__ __forceinline__ unsigned long long sel_key(float v, int i) {
+  return ((unsigned long long)key_of(v) << 32) | (unsigned)~i;
+}
+
+// One block per row of logits [M, V]: scores [M, k] = the k best logits in
+// (value desc, index asc) order minus the row's logsumexp, ids [M, k] their
+// columns. gbuf: [M, n2] 8-byte scratch, read only when n2 > SORT_SMEM.
+__global__ void __launch_bounds__(SEL_NT) select_kernel(
+    const float* __restrict__ logits, unsigned long long* __restrict__ gbuf,
+    float* __restrict__ scores, long long* __restrict__ ids, int V, int k, int n2) {
+  extern __shared__ __align__(16) unsigned long long sbuf[];
+  __shared__ int hist[256];
+  __shared__ float red[SEL_NT / 32];
+  __shared__ int digit, left, taken, count;
+  const int tid = threadIdx.x, m = blockIdx.x;
+  const float* row = logits + (size_t)m * V;
+
+  // the row's logsumexp
+  float mx = -CUDART_INF_F;
+  for (int i = tid; i < V; i += SEL_NT) mx = fmaxf(mx, row[i]);
+  mx = block_reduce<true>(mx, red);
+  float sum = 0.0f;
+  for (int i = tid; i < V; i += SEL_NT) sum += expf(row[i] - mx);
+  const float lse = mx + logf(block_reduce<false>(sum, red));
+
+  // radix select of the k-th best key: `prefix` holds its top bits so far,
+  // `kk` how many of the keys under the prefix are still to take
+  unsigned long long prefix = 0, pmask = 0;
+  int kk = k;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int b = tid; b < 256; b += SEL_NT) hist[b] = 0;
+    __syncthreads();
+    for (int i = tid; i < V; i += SEL_NT) {
+      const unsigned long long key = sel_key(row[i], i);
+      if ((key & pmask) == prefix) atomicAdd(&hist[(key >> shift) & 255], 1);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int above = 0, b = 255;
+      while (above + hist[b] < kk) above += hist[b--];
+      digit = b;
+      left = kk - above;          // to take among the keys of this digit
+      taken = hist[b];
+    }
+    __syncthreads();
+    prefix |= (unsigned long long)digit << shift;
+    pmask |= 255ull << shift;
+    kk = left;
+    if (taken == kk) break;       // every key under the prefix is taken
+  }
+
+  // gather the k winners (key >= the prefix under the mask), then sort them
+  unsigned long long* buf = n2 <= SORT_SMEM ? sbuf : gbuf + (size_t)m * n2;
+  if (tid == 0) count = 0;
+  __syncthreads();
+  for (int i = tid; i < V; i += SEL_NT) {
+    const unsigned long long key = sel_key(row[i], i);
+    if ((key & pmask) >= prefix) buf[atomicAdd(&count, 1)] = key;
+  }
+  for (int i = k + tid; i < n2; i += SEL_NT) buf[i] = 0;   // below every key
+  __syncthreads();
+  for (int size = 2; size <= n2; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n2 / 2; i += SEL_NT) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long a = buf[lo], b = buf[hi];
+        if (((lo & size) == 0) == (a < b)) {     // descending runs where lo & size == 0
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  for (int j = tid; j < k; j += SEL_NT) {
+    const unsigned long long key = buf[j];
+    scores[(size_t)m * k + j] = value_of((unsigned)(key >> 32)) - lse;
+    ids[(size_t)m * k + j] = (long long)(unsigned)~(unsigned)key;
+  }
+}
+
+int select_smem(int n2) { return n2 <= SORT_SMEM ? n2 * 8 : 0; }
+
+int launch_select(const float* logits, unsigned long long* gbuf, void* scores, void* ids,
+                  int M, int V, int k, cudaStream_t st) {
+  static bool smem_attr = false;
+  int n2 = 1;
+  while (n2 < k) n2 <<= 1;
+  if (!smem_attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SORT_SMEM * 8);
+    if (e != cudaSuccess) return (int)e;
+    smem_attr = true;
+  }
+  select_kernel<<<M, SEL_NT, select_smem(n2), st>>>(logits, gbuf, (float*)scores,
+                                                    (long long*)ids, V, k, n2);
+  return (int)cudaGetLastError();
+}
+
+template <int BM>
+int ring_smem() { return w4mma::NS * STile<BM>::SLOT; }
+
+template <int BM, bool VEC>
+int launch_logits(const ScoreParams& p, float* logits, cudaStream_t st) {
+  static bool smem_attr = false;
+  if (p.a.smem != ring_smem<BM>() || p.a.grid_m != (p.a.M + BM - 1) / BM ||
+      p.a.grid_n != p.s.T)
+    return (int)cudaErrorInvalidValue;
+  if (!smem_attr) {
+    cudaError_t e = cudaFuncSetAttribute(score_logits_kernel<BM, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         w4mma::SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    smem_attr = true;
+  }
+  score_logits_kernel<BM, VEC><<<dim3(p.a.grid_m, p.a.grid_n), S_NT, p.a.smem, st>>>(p, logits);
+  return (int)cudaGetLastError();
+}
+
 // the kernel's shared memory: the ring, the logits tile, then the merge's
 // heads (BIG: heads, next candidates and positions), one region after the
 // other in time
@@ -504,7 +701,7 @@ __global__ void __launch_bounds__(NT8) score_tile_kernel(
     const int* __restrict__ xw, const float* __restrict__ sx,
     const int8_t* __restrict__ q8, const float* __restrict__ scale,
     float* __restrict__ stat, float* __restrict__ cval, int* __restrict__ cidx, int M,
-    int K, int V, int k, int cast_bf16) {
+    int K, int V, int k, int cast_bf16, float* __restrict__ logits) {
   __shared__ float sl[MT][TILE8];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile = blockIdx.y, T = gridDim.y;
@@ -528,8 +725,11 @@ __global__ void __launch_bounds__(NT8) score_tile_kernel(
       float v = logit[m];
       if (cast_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
       sl[m][c] = col < V ? v : -CUDART_INF_F;
+      // the select route (k > MAX_K) takes the logits themselves
+      if (logits != nullptr && col < V && m0 + m < M) logits[(size_t)(m0 + m) * V + col] = v;
     }
   }
+  if (logits != nullptr) return;
   __syncthreads();
 
   for (int m = warp; m < MT; m += NT8 / 32) {
@@ -637,29 +837,35 @@ __global__ void __launch_bounds__(NT8) score_merge_kernel(
 template <int MT>
 void launch_w8_tiles(const void* xq, const void* sx, const void* q8, const void* scale,
                      float* stat, float* cval, int* cidx, int M, int K, int V, int k,
-                     int cast_bf16, int T, cudaStream_t st) {
+                     int cast_bf16, int T, float* logits, cudaStream_t st) {
   dim3 grid((M + MT - 1) / MT, T);
   score_tile_kernel<MT><<<grid, NT8, 0, st>>>((const int*)xq, (const float*)sx,
                                                (const int8_t*)q8, (const float*)scale, stat,
-                                               cval, cidx, M, K, V, k, cast_bf16);
+                                               cval, cidx, M, K, V, k, cast_bf16, logits);
 }
+
+// the select route's workspace: the logits [M, V] f32, then (k past
+// SORT_SMEM) the sort's [M, n2] 8-byte keys, 8-byte aligned
+size_t select_ws_logits(int M, int V) { return ((size_t)M * V + 1) / 2 * 2; }
 
 }  // namespace
 
 // w4. xq: int8 [M, K]; rs: int32 [M, G]; sx: f32 [M]; q4: int32 [K/8, V];
-// scale: f32 [G, V]; ws: 4-byte workspace [M * T * (2 + 2k)] with T the
-// column tiles; counters: int32 [row tiles], zero (and left zero); scores:
-// f32 [M, k]; ids: int64 [M, k]; k <= 128, k <= V; any M. bm (rows per
-// block), vec (16-byte copies), smem (dynamic shared memory, bytes; the merge
-// it holds follows k) and the grid's row and column tiles are
-// ops/score_topk.score_plan's. Returns cudaGetLastError() after the launch
-// (0 = launched).
+// scale: f32 [G, V]; ws: 4-byte workspace, [M * T * (2 + 2k)] with T the
+// column tiles for k <= 128, else the select route's (select_ws_logits(M, V)
+// words, then 2 M n2 words when n2 = k rounded up to a power of two exceeds
+// 8192); counters: int32 [row tiles], zero (and left zero); scores: f32
+// [M, k]; ids: int64 [M, k]; any k <= V; any M. bm (rows per block), vec
+// (16-byte copies), smem (dynamic shared memory, bytes; the merge it holds
+// follows k; the select route's is the ring alone) and the grid's row and
+// column tiles are ops/score_topk.score_plan's. Returns cudaGetLastError()
+// after the launches (0 = launched).
 extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
                                  const void* q4, const void* scale, void* ws,
                                  void* counters, void* scores, void* ids, int M, int K,
                                  int V, int G, int k, int cast_bf16, int bm, int vec,
                                  int smem, int grid_m, int grid_n, void* stream) {
-  if (M <= 0 || k <= 0 || k > MAX_K || k > V || grid_n > 65535)
+  if (M <= 0 || k <= 0 || k > V || grid_n > 65535)
     return (int)cudaErrorInvalidValue;
   ScoreParams p;
   const int err = w4mma::make_args(p.a, xq, rs, q4, scale, nullptr, M, K, V, G, 1, 0, vec,
@@ -678,6 +884,15 @@ extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
   p.s.cast_bf16 = cast_bf16;
   p.s.T = T;
   cudaStream_t st = (cudaStream_t)stream;
+  if (k > MAX_K) {
+    float* lg = (float*)ws;
+    unsigned long long* gbuf = (unsigned long long*)(lg + select_ws_logits(M, V));
+#define LOGITS(BM) \
+  (p.a.vec ? launch_logits<BM, true>(p, lg, st) : launch_logits<BM, false>(p, lg, st))
+    const int e = bm == 16 ? LOGITS(16) : bm == 32 ? LOGITS(32) : (int)cudaErrorInvalidValue;
+#undef LOGITS
+    return e != 0 ? e : launch_select(lg, gbuf, scores, ids, M, V, k, st);
+  }
 #define SCORE(BM, BIG) (p.a.vec ? launch_score<BM, true, BIG>(p, st) : launch_score<BM, false, BIG>(p, st))
   const bool big = k > SMALL_K;
   switch (bm) {
@@ -689,8 +904,9 @@ extern "C" int score_topk_launch(const void* xq, const void* rs, const void* sx,
 }
 
 // w8. xq: int8 [M, K]; sx: f32 [M]; q8: int8 [K, V]; scale: f32 [V]; ws:
-// 4-byte workspace [M * T * (2 + 2k)] with T = ceil(V / 64); scores f32
-// [M, k], ids int64 [M, k]. Two launches (tiles, merge); returns
+// 4-byte workspace, [M * T * (2 + 2k)] with T = ceil(V / 64) for k <= 128,
+// else the select route's (as for w4); scores f32 [M, k], ids int64 [M, k];
+// any k <= V. Two launches (tiles, then merge or select); returns
 // cudaGetLastError() after them.
 extern "C" int score_topk_w8_launch(const void* xq, const void* sx, const void* q8,
                                     const void* scale, void* ws, void* scores, void* ids,
@@ -698,13 +914,15 @@ extern "C" int score_topk_w8_launch(const void* xq, const void* sx, const void* 
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int T = (V + TILE8 - 1) / TILE8;
-  if (M <= 0 || k <= 0 || k > MAX_K || k > V || K % 8 != 0 || T > 65535)
+  if (M <= 0 || k <= 0 || k > V || K % 8 != 0 || T > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool select = k > MAX_K;
   float* stat = (float*)ws;
   float* cval = stat + (size_t)M * T * 2;
   int* cidx = (int*)(cval + (size_t)M * T * k);
+  float* lg = select ? (float*)ws : nullptr;
 #define TILES(MT) launch_w8_tiles<MT>(xq, sx, q8, scale, stat, cval, cidx, M, K, V, k, \
-                                      cast_bf16, T, st)
+                                      cast_bf16, T, lg, st)
   if (M == 1) TILES(1);
   else if (M == 2) TILES(2);
   else if (M <= 4) TILES(4);
@@ -713,6 +931,9 @@ extern "C" int score_topk_w8_launch(const void* xq, const void* sx, const void* 
 #undef TILES
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  if (select)
+    return launch_select(lg, (unsigned long long*)(lg + select_ws_logits(M, V)), scores, ids,
+                         M, V, k, st);
   score_merge_kernel<<<M, NT8, 0, st>>>(stat, cval, cidx, (float*)scores, (long long*)ids,
                                         T, k);
   return (int)cudaGetLastError();

@@ -14,8 +14,16 @@
 // n_kv = 8, d = 128) one launch reads the prefix K/V once, 4 KiB per row and
 // head pair, and does 4*T*nq*(start+Tk)*d flops: ~1.1 GFLOP against ~4 MB at
 // start = 1024, about 270 flop/byte, just under the bf16 tensor-core ridge
-// (~295): the bytes bound it, 1.6 us. The head width d is a template
-// parameter of every kernel here; 64 (Llama-3.2-1B class) and 128 are built.
+// (~295): the bytes bound it, 1.6 us.
+//
+// Head widths: every kernel here is built at a padded width HD of 64, 128 or
+// 256 and takes the true width d <= HD at launch (80 and 96 run at 128, 160
+// to 256 at 256); the bf16 kernel has a second instantiation for d == HD
+// (the widths of the main paths) with d known at compile time. Loads past d
+// fill shared memory with zeros, which changes no score and no output
+// column; stores write d columns. Rows of a width that is not a multiple of
+// 16 bytes are not 16-byte aligned, and load element by element instead of
+// by 16-byte copies.
 //
 // bf16 (the serving path), `tree_attn_mma_kernel`:
 //  - Products on tensor cores: mma.sync m16n8k16 bf16 with f32 accumulators
@@ -42,10 +50,18 @@
 //    that it resets to 0, merges the partials in chunk order and writes
 //    out: one launch per call.
 //
+//  - At HD = 256 the Q fragments (64 registers a thread) are read from
+//    shared memory at each key tile instead of held, so the 128 f32
+//    accumulators fit, and key tiles are 32 keys (the score fragments take
+//    16 registers, not 32): with both, ptxas spills nothing; the merge walks
+//    the columns in slices of 64. Shared memory: (64 + 4 * 32) rows of 264
+//    bf16 = 99 KiB.
+//
 // f32 (the exactness checks), `tree_attn_kernel`: the first version's FP32
 // FMA body (TF32 tensor cores would not hold an f32 tolerance of 1e-5): one
 // block per (kv head, 16 query rows) walks the prefix to `start`, then the
-// tree's keys, with products from shared memory.
+// tree's keys, with products from shared memory (dynamic: 83.5 KiB at
+// HD = 256).
 
 #include "ptx.cuh"
 
@@ -61,23 +77,25 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Copy one 16-byte chunk of a source row (VEC elements) into f32 shared
-// memory, or zeros when src is null.
+// Copy the 16-byte chunk at column c of a source row (VEC elements) into f32
+// shared memory: zeros when row is null and past the row's d columns; one
+// 16-byte load when the row is 16-byte aligned (vec) and the chunk lies
+// inside it, else element by element.
 template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src) {
+__device__ __forceinline__ void load_chunk(float* dst, const T* row, int c, int d, bool vec) {
   constexpr int VEC = 16 / sizeof(T);
-  if (src == nullptr) {
+  if (row != nullptr && vec && c + VEC <= d) {
+    uint4 raw = *reinterpret_cast<const uint4*>(row + c);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(to_f(e[i]), to_f(e[i + 1]), to_f(e[i + 2]), to_f(e[i + 3]));
     return;
   }
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < VEC; i += 4)
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4(to_f(e[i]), to_f(e[i + 1]), to_f(e[i + 2]), to_f(e[i + 3]));
+  for (int i = 0; i < VEC; ++i)
+    dst[i] = (row != nullptr && c + i < d) ? to_f(row[c + i]) : 0.f;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -92,22 +110,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+template <int D>
+__host__ __device__ constexpr int f32_smem() {   // Qs, Ks, Vs, Ps, m / l / a
+  return ((R + 2 * BK) * (D + 4) + R * (BK + 1) + 3 * R) * 4;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) tree_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
     const T* __restrict__ kt, const T* __restrict__ vt,
     const uint8_t* __restrict__ mask, const int* __restrict__ start_ptr,
-    T* __restrict__ out, int Tq, int Tk, int nq, int nkv, int S_rows, int S, float scale) {
+    T* __restrict__ out, int Tq, int Tk, int nq, int nkv, int S_rows, int S, int d,
+    float scale) {
   constexpr int DP = D + 4;          // padded f32 row: 16B-aligned, conflict-free
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CH = D / VEC;        // 16-byte chunks per row
   constexpr int NC = D / 32;         // float4 output chunks per thread
 
-  __shared__ __align__(16) float Qs[R * DP];
-  __shared__ __align__(16) float Ks[BK * DP];
-  __shared__ __align__(16) float Vs[BK * DP];
-  __shared__ float Ps[R * (BK + 1)];
-  __shared__ float m_s[R], l_s[R], a_s[R];
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* Ks = Qs + R * DP;
+  float* Vs = Ks + BK * DP;
+  float* Ps = Vs + BK * DP;
+  float* m_s = Ps + R * (BK + 1);
+  float* l_s = m_s + R;
+  float* a_s = l_s + R;
+  const bool vec = (d * (int)sizeof(T)) % 16 == 0;   // rows 16-byte aligned
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -123,8 +151,8 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
     const int r = e / CH, c = (e % CH) * VEC;
     const int gr = r0 + r;
     const T* src = nullptr;
-    if (gr < rows) src = q + ((size_t)(gr / g) * nq + h * g + gr % g) * D + c;
-    load_chunk<T>(Qs + r * DP + c, src);
+    if (gr < rows) src = q + ((size_t)(gr / g) * nq + h * g + gr % g) * d;
+    load_chunk<T>(Qs + r * DP + c, src, c, d, vec);
   }
   if (tid < R) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
 
@@ -146,13 +174,13 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
         const T* ks = nullptr;
         const T* vs = nullptr;
         if (key < nkeys) {
-          const size_t off = phase == 0 ? ((size_t)h * S + key) * D + c
-                                        : ((size_t)key * nkv + h) * D + c;
+          const size_t off = phase == 0 ? ((size_t)h * S + key) * d
+                                        : ((size_t)key * nkv + h) * d;
           ks = (phase == 0 ? kc : kt) + off;
           vs = (phase == 0 ? vc : vt) + off;
         }
-        load_chunk<T>(Ks + r * DP + c, ks);
-        load_chunk<T>(Vs + r * DP + c, vs);
+        load_chunk<T>(Ks + r * DP + c, ks, c, d, vec);
+        load_chunk<T>(Vs + r * DP + c, vs, c, d, vec);
       }
       __syncthreads();
 
@@ -219,28 +247,37 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
   const int gr = r0 + pr;
   if (gr < rows) {
     const float inv = 1.f / fmaxf(l_s[pr], 1e-30f);
-    T* o = out + (size_t)(gr / g) * nq * D + (size_t)(h * g + gr % g) * D;
+    T* o = out + (size_t)(gr / g) * nq * d + (size_t)(h * g + gr % g) * d;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = pc + 32 * i;
-      store_f(o + c, acc[i].x * inv);
-      store_f(o + c + 1, acc[i].y * inv);
-      store_f(o + c + 2, acc[i].z * inv);
-      store_f(o + c + 3, acc[i].w * inv);
+      const float v[4] = {acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < d) store_f(o + c + e, v[e]);
     }
   }
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* kc, const void* vc, const void* kt,
-            const void* vt, const void* mask, const void* start, void* out,
-            int Tq, int Tk, int nq, int nkv, int S_rows, int S, float scale,
-            cudaStream_t stream) {
+int launch(const void* q, const void* kc, const void* vc, const void* kt,
+           const void* vt, const void* mask, const void* start, void* out,
+           int Tq, int Tk, int nq, int nkv, int S_rows, int S, int d, float scale,
+           cudaStream_t stream) {
+  static bool smem_attr = false;
+  if (!smem_attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tree_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem<D>());
+    if (e != cudaSuccess) return (int)e;
+    smem_attr = true;
+  }
   const int rows = Tq * (nq / nkv);
   dim3 grid(nkv, (rows + R - 1) / R);
-  tree_attn_kernel<T, D><<<grid, NT, 0, stream>>>(
+  tree_attn_kernel<T, D><<<grid, NT, f32_smem<D>(), stream>>>(
       (const T*)q, (const T*)kc, (const T*)vc, (const T*)kt, (const T*)vt,
-      (const uint8_t*)mask, (const int*)start, (T*)out, Tq, Tk, nq, nkv, S_rows, S, scale);
+      (const uint8_t*)mask, (const int*)start, (T*)out, Tq, Tk, nq, nkv, S_rows, S, d,
+      scale);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -249,18 +286,39 @@ void launch(const void* q, const void* kc, const void* vc, const void* kt,
 
 constexpr int BR = 64;                 // query rows per block: 4 warps x m16
 constexpr int CHUNK = 256;             // prefix keys per block
-constexpr int BKT = 64;                // keys per tile (one cp.async stage)
-// bf16 per shared row: HD + 8 (272 B at 128, 144 B at 64) keeps rows 16-byte
-// aligned and puts the 8 rows an ldmatrix reads 16 bytes apart mod 128 B, so
-// they hit eight different bank groups at either width
+// keys per tile (one cp.async stage): 64, and 32 at HD = 256, where the
+// score fragments of 64 keys (32 registers) would push the 128 f32
+// accumulators into spills
+template <int HD>
+__host__ __device__ constexpr int key_tile() { return HD > 128 ? 32 : 64; }
+// bf16 per shared row: HD + 8 (144, 272 and 528 B at 64, 128 and 256) keeps
+// rows 16-byte aligned and puts the 8 rows an ldmatrix reads 16 bytes apart
+// mod 128 B, so they hit eight different bank groups at every width
 template <int HD>
 __host__ __device__ constexpr int row_stride() { return HD + 8; }
 template <int HD>
-__host__ __device__ constexpr int mma_smem() { return (BR + 4 * BKT) * row_stride<HD>() * 2; }   // Q + two stages of K and V
+__host__ __device__ constexpr int mma_smem() {   // Q + two stages of K and V
+  return (BR + 4 * key_tile<HD>()) * row_stride<HD>() * 2;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the 8 bf16 at column ch of a global row into shared memory: a 16-byte
+// cp.async when the row is 16-byte aligned (vec) or the chunk is wholly
+// absent (zero fill; `any` is a valid address that is not read), else
+// element by element with zeros past the row's d columns
+__device__ __forceinline__ void load8(__nv_bfloat16* dst, const __nv_bfloat16* row, int ch,
+                                      int d, bool vec, const __nv_bfloat16* any) {
+  if (row == nullptr || ch >= d || vec) {
+    const bool in = row != nullptr && ch < d;
+    ptx::cp_async16(dst, in ? row + ch : any, in ? 16 : 0);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = ch + e < d ? row[ch + e] : __float2bfloat16(0.f);
 }
 
 // p -> bf16 hi + bf16 lo with hi + lo = p to ~2^-17 relative
@@ -270,21 +328,28 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const __nv_bfloat16* __restrict__ kt,
     const __nv_bfloat16* __restrict__ vt, const uint8_t* __restrict__ mask,
     const int* __restrict__ start_ptr, __nv_bfloat16* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int* __restrict__ counters,
-    int Tq, int Tk, int nq, int nkv, int S_rows, int head_stride, float scale) {
+    int Tq, int Tk, int nq, int nkv, int S_rows, int head_stride, int d_in, float scale) {
+  // EXACT: the head width is the padded one (64, 128, 256), known at compile
+  // time, so row offsets are shifts and no load or store takes a ragged path
+  const int d = EXACT ? HD : d_in;
   constexpr int RS = row_stride<HD>();
+  // the Q fragments stay in registers up to HD = 128; at 256 they are read
+  // from shared memory each key tile (the accumulators take 128 registers)
+  constexpr bool QREG = HD <= 128;
+  constexpr int KT = key_tile<HD>();
   static_assert(HD % 16 == 0 && (RS * 2) % 16 == 0, "rows of whole ldmatrix tiles, 16-byte aligned");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BR * RS;
-  __nv_bfloat16* Vs = Ks + 2 * BKT * RS;
+  __nv_bfloat16* Vs = Ks + 2 * KT * RS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -296,28 +361,29 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   const int n_act = (start + CHUNK - 1) / CHUNK;       // prefix chunks with keys
   const bool tree = c == n_chunks;
   if (!tree && c >= n_act) return;
+  const bool vec = d % 8 == 0;                         // rows 16-byte aligned
   const int kbeg = tree ? 0 : c * CHUNK;
   const int kend = tree ? Tk : min(kbeg + CHUNK, start);
-  const int ntiles = (kend - kbeg + BKT - 1) / BKT;
+  const int ntiles = (kend - kbeg + KT - 1) / KT;
 
   // Q tile: block row r is global row r0 + r = (t, j) -> q head h*g + j
   for (int e = tid; e < BR * (HD / 8); e += NT) {
     const int r = e / (HD / 8), ch = (e % (HD / 8)) * 8, gr = r0 + r;
-    const bool ok = gr < rows;
-    const __nv_bfloat16* src = ok ? q + ((size_t)(gr / g) * nq + h * g + gr % g) * HD + ch : q;
-    ptx::cp_async16(Qs + r * RS + ch, src, ok ? 16 : 0);
+    const __nv_bfloat16* row =
+        gr < rows ? q + ((size_t)(gr / g) * nq + h * g + gr % g) * d : nullptr;
+    load8(Qs + r * RS + ch, row, ch, d, vec, q);
   }
   auto load_tile = [&](int i) {
     if (i < ntiles) {
-      __nv_bfloat16* kd = Ks + (i & 1) * BKT * RS;
-      __nv_bfloat16* vd = Vs + (i & 1) * BKT * RS;
-      for (int e = tid; e < BKT * (HD / 8); e += NT) {
-        const int r = e / (HD / 8), ch = (e % (HD / 8)) * 8, key = kbeg + i * BKT + r;
+      __nv_bfloat16* kd = Ks + (i & 1) * KT * RS;
+      __nv_bfloat16* vd = Vs + (i & 1) * KT * RS;
+      for (int e = tid; e < KT * (HD / 8); e += NT) {
+        const int r = e / (HD / 8), ch = (e % (HD / 8)) * 8, key = kbeg + i * KT + r;
         const bool ok = key < kend;
-        const size_t off = tree ? ((size_t)key * nkv + h) * HD + ch
-                                : ((size_t)h * head_stride + key) * HD + ch;
-        ptx::cp_async16(kd + r * RS + ch, ok ? (tree ? kt : kc) + off : kc, ok ? 16 : 0);
-        ptx::cp_async16(vd + r * RS + ch, ok ? (tree ? vt : vc) + off : vc, ok ? 16 : 0);
+        const size_t off = tree ? ((size_t)key * nkv + h) * d
+                                : ((size_t)h * head_stride + key) * d;
+        load8(kd + r * RS + ch, ok ? (tree ? kt : kc) + off : nullptr, ch, d, vec, kc);
+        load8(vd + r * RS + ch, ok ? (tree ? vt : vc) + off : nullptr, ch, d, vec, vc);
       }
     }
     ptx::cp_commit();
@@ -326,7 +392,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   load_tile(1);
 
   const int wrow = warp * 16;
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   float acc[HD / 8][4];
 #pragma unroll
@@ -338,36 +404,45 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   for (int i = 0; i < ntiles; ++i) {
     ptx::cp_wait<1>();
     __syncthreads();
-    if (i == 0) {
+    if (QREG && i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < (QREG ? HD / 16 : 0); ++kk)
         ptx::ldsm_x4(qf[kk], Qs + (wrow + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
     }
-    const __nv_bfloat16* Kt = Ks + (i & 1) * BKT * RS;
-    const __nv_bfloat16* Vt = Vs + (i & 1) * BKT * RS;
+    const __nv_bfloat16* Kt = Ks + (i & 1) * KT * RS;
+    const __nv_bfloat16* Vt = Vs + (i & 1) * KT * RS;
 
     // S = Q K^T for 16 rows x 64 keys per warp
-    float s[BKT / 8][4];
+    float s[KT / 8][4];
 #pragma unroll
-    for (int j = 0; j < BKT / 8; ++j)
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (!QREG)
+        ptx::ldsm_x4(qa, Qs + (wrow + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int jp = 0; jp < BKT / 16; ++jp) {
+      for (int jp = 0; jp < KT / 16; ++jp) {
         uint32_t b[4];
         ptx::ldsm_x4(b, Kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        ptx::mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        ptx::mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        if constexpr (QREG) {
+          ptx::mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+          ptx::mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        } else {
+          ptx::mma_bf16(s[2 * jp], qa, b[0], b[1]);
+          ptx::mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+        }
       }
+    }
 
     // mask, scale, online softmax (rows gid and gid + 8 of the warp's 16)
-    const int kb = kbeg + i * BKT;
+    const int kb = kbeg + i * KT;
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < BKT / 8; ++j)
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kb + 8 * j + 2 * tig + (e & 1);
@@ -390,7 +465,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
       l_r[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < BKT / 8; ++j)
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = expf(s[j][e] - m_r[e >> 1]);
@@ -404,7 +479,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     // acc += P V, P as bf16 hi + lo; the S accumulators of key tiles 2k, 2k+1
     // are the A fragment of key step k
 #pragma unroll
-    for (int k = 0; k < BKT / 16; ++k) {
+    for (int k = 0; k < KT / 16; ++k) {
       uint32_t ph[4], pl[4];
       split_bf16(s[2 * k][0], s[2 * k][1], ph[0], pl[0]);
       split_bf16(s[2 * k][2], s[2 * k][3], ph[1], pl[1]);
@@ -458,7 +533,10 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   if (!is_last) return;
   __threadfence();
 
-  // merge, in chunk order: thread -> row tid / 2, HD / 2 dims
+  // merge, in chunk order: thread -> row tid / 2, HD / 2 dims, in slices of
+  // at most 64 (one slice up to HD = 128; at 256 the chunk weights and the
+  // row sum are computed again for the second)
+  constexpr int MS = HD / 2 < 64 ? HD / 2 : 64;
   const int lr = tid >> 1, d0 = (tid & 1) * (HD / 2), gr = r0 + lr;
   if (gr >= rows) return;
   float M = NEG_INF;
@@ -466,37 +544,50 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     const int cs = k < n_act ? k : n_chunks;
     M = fmaxf(M, __ldcg(part_ml + (base + cs) * 2 * BR + lr));
   }
-  float l = 0.f;
-  float4 o[HD / 8];
+  __nv_bfloat16* dst = out + (size_t)(gr / g) * nq * d + (size_t)(h * g + gr % g) * d;
+  const bool vec4 = d % 4 == 0;                        // 8-byte aligned stores
+#pragma unroll 1
+  for (int c0 = d0; c0 < d0 + HD / 2 && c0 < d; c0 += MS) {
+    float l = 0.f;
+    float4 o[MS / 4];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k <= n_act; ++k) {
-    const int cs = k < n_act ? k : n_chunks;
-    const float w = expf(__ldcg(part_ml + (base + cs) * 2 * BR + lr) - M);
-    l += w * __ldcg(part_ml + (base + cs) * 2 * BR + BR + lr);
-    const float4* src = reinterpret_cast<const float4*>(part_acc + (base + cs) * BR * HD + lr * HD + d0);
+    for (int i = 0; i < MS / 4; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k <= n_act; ++k) {
+      const int cs = k < n_act ? k : n_chunks;
+      const float w = expf(__ldcg(part_ml + (base + cs) * 2 * BR + lr) - M);
+      l += w * __ldcg(part_ml + (base + cs) * 2 * BR + BR + lr);
+      const float4* src =
+          reinterpret_cast<const float4*>(part_acc + (base + cs) * BR * HD + lr * HD + c0);
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      const float4 v = __ldcg(src + i);
-      o[i].x += w * v.x; o[i].y += w * v.y; o[i].z += w * v.z; o[i].w += w * v.w;
+      for (int i = 0; i < MS / 4; ++i) {
+        const float4 v = __ldcg(src + i);
+        o[i].x += w * v.x; o[i].y += w * v.y; o[i].z += w * v.z; o[i].w += w * v.w;
+      }
     }
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  __nv_bfloat16* dst = out + (size_t)(gr / g) * nq * HD + (size_t)(h * g + gr % g) * HD + d0;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    uint2 v;
-    v.x = pack_bf16(o[i].x * inv, o[i].y * inv);
-    v.y = pack_bf16(o[i].z * inv, o[i].w * inv);
-    *reinterpret_cast<uint2*>(dst + 4 * i) = v;
+    for (int i = 0; i < MS / 4; ++i) {
+      const int col = c0 + 4 * i;
+      if (vec4 && col + 4 <= d) {
+        uint2 v;
+        v.x = pack_bf16(o[i].x * inv, o[i].y * inv);
+        v.y = pack_bf16(o[i].z * inv, o[i].w * inv);
+        *reinterpret_cast<uint2*>(dst + col) = v;
+      } else {
+        const float v[4] = {o[i].x * inv, o[i].y * inv, o[i].z * inv, o[i].w * inv};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) dst[col + e] = __float2bfloat16(v[e]);
+      }
+    }
   }
 }
 
-template <int HD>
+template <int HD, bool EXACT>
 int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
                const void* vt, const void* mask, const void* start, void* out,
                void* part_acc, void* part_ml, void* counters, int Tq, int Tk, int nq,
-               int nkv, int S_rows, int head_stride, int rows_per_tile, int chunk,
+               int nkv, int S_rows, int head_stride, int d, int rows_per_tile, int chunk,
                int row_tiles, int chunks, float scale, cudaStream_t stream) {
   static bool smem_attr = false;
   // the wrapper's plan must be this kernel's geometry, and cover the rows
@@ -506,50 +597,53 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
     return (int)cudaErrorInvalidValue;
   if (!smem_attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tree_attn_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem<HD>());
+        tree_attn_mma_kernel<HD, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mma_smem<HD>());
     if (e != cudaSuccess) return (int)e;
     smem_attr = true;
   }
   const dim3 grid(row_tiles, chunks + 1, nkv);
-  tree_attn_mma_kernel<HD><<<grid, NT, mma_smem<HD>(), stream>>>(
+  tree_attn_mma_kernel<HD, EXACT><<<grid, NT, mma_smem<HD>(), stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc,
       (const __nv_bfloat16*)kt, (const __nv_bfloat16*)vt, (const uint8_t*)mask,
       (const int*)start, (__nv_bfloat16*)out, (float*)part_acc, (float*)part_ml,
-      (int*)counters, Tq, Tk, nq, nkv, S_rows, head_stride, scale);
+      (int*)counters, Tq, Tk, nq, nkv, S_rows, head_stride, d, scale);
   return (int)cudaGetLastError();
 }
 
+// the padded width a head width runs at: 64, 128 or 256 (0: not built)
+int head_pad(int d) { return d < 1 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0; }
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. d: head_dim, 64 (Llama-3.2-1B's) or 128
-// (Llama-3.1-8B's); each is its own instantiation of both kernels.
-// S_rows: the cache's (or view's) rows; head_stride: rows between two kv
-// heads of the buffer. bf16 only: the plan of ops/attn_kernels.tree_plan
-// (rows_per_tile = 64 query rows and chunk = 256 prefix keys a block,
-// row_tiles, chunks; refused unless it is this kernel's), part_acc f32
-// [n_kv, row tiles, chunks + 1, 64, 128], part_ml f32 [n_kv, row tiles,
-// chunks + 1, 2, 64], counters int32 [n_kv * row tiles], zero on entry and
-// left zero. Returns cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. d: head_dim, 1 .. 256; the kernels run at
+// the padded width head_pad (64 for d <= 64, 128 for d <= 128, else 256),
+// which the plan gives and the launch checks. S_rows: the cache's (or view's)
+// rows; head_stride: rows between two kv heads of the buffer. bf16 only: the
+// plan of ops/attn_kernels.tree_plan (rows_per_tile = 64 query rows and
+// chunk = 256 prefix keys a block, row_tiles, chunks; refused unless it is
+// this kernel's), part_acc f32 [n_kv, row tiles, chunks + 1, 64, head_pad],
+// part_ml f32 [n_kv, row tiles, chunks + 1, 2, 64], counters int32
+// [n_kv * row tiles], zero on entry and left zero. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int tree_attention_launch(
     const void* q, const void* k_cache, const void* v_cache, const void* k_tree,
     const void* v_tree, const void* tree_mask, const void* start, void* out,
     void* part_acc, void* part_ml, void* counters, int dtype, int T, int Tk, int nq,
-    int nkv, int S_rows, int head_stride, int d, int rows_per_tile, int chunk, int row_tiles,
-    int chunks, float scale, void* stream) {
+    int nkv, int S_rows, int head_stride, int d, int hd_pad, int rows_per_tile, int chunk,
+    int row_tiles, int chunks, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((d != 64 && d != 128) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (d == 64)
-      launch<float, 64>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, T, Tk,
-                        nq, nkv, S_rows, head_stride, scale, st);
-    else
-      launch<float, 128>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, T, Tk,
-                         nq, nkv, S_rows, head_stride, scale, st);
-    return (int)cudaGetLastError();
-  }
-#define MMA(HD) launch_mma<HD>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
-                               part_acc, part_ml, counters, T, Tk, nq, nkv, S_rows,       \
-                               head_stride, rows_per_tile, chunk, row_tiles, chunks, scale, st)
-  return d == 64 ? MMA(64) : MMA(128);
+  const int hp = head_pad(d);
+  if (hp == 0 || hd_pad != hp || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+#define F32(HD) launch<float, HD>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
+                                  T, Tk, nq, nkv, S_rows, head_stride, d, scale, st)
+#define MMA(HD) (d == HD ? launch_mma<HD, true>(MMA_ARGS) : launch_mma<HD, false>(MMA_ARGS))
+#define MMA_ARGS q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
+                 part_acc, part_ml, counters, T, Tk, nq, nkv, S_rows, head_stride, d,    \
+                 rows_per_tile, chunk, row_tiles, chunks, scale, st
+  if (dtype == 0) return hp == 64 ? F32(64) : hp == 128 ? F32(128) : F32(256);
+  return hp == 64 ? MMA(64) : hp == 128 ? MMA(128) : MMA(256);
+#undef F32
 #undef MMA
+#undef MMA_ARGS
 }

@@ -1,9 +1,9 @@
-"""EagleEngine — greedy speculative decoding, B = 1, on one device.
+"""EagleEngine — speculative decoding, B = 1, on one device, greedy or sampled.
 
-Port of eagle_tpu/engine/engine.py for the single-sequence greedy engine:
-`_prefill`, `_round` (tree verify → accept_greedy → KV compaction → next
-draft tree), `generate`, `generate_fused`, `generate_stream`, the vanilla
-baseline and its stream, `calibrate_total_tokens` and `from_pretrained`.
+Port of eagle_tpu/engine/engine.py for the single-sequence engine:
+`_prefill`, `_round` (tree verify → acceptance → KV compaction → next draft
+tree), `generate`, `generate_fused`, `generate_stream`, the vanilla baseline
+and its stream, `calibrate_total_tokens` and `from_pretrained`.
 The JAX engine jits each round into one XLA program; here PyTorch runs
 eagerly and a round keeps every offset on the device, so it never waits on
 the host. `generate_fused` is a host loop whose only per-round sync reads
@@ -23,9 +23,22 @@ inside its while loop). `generate_fused` and the fused vanilla loop pick it
 on the host, from a length they already hold, with the same formula
 (`_bucket_index`), and add no sync for it.
 
-Options not ported yet raise NotImplementedError: temperature > 0,
-batched generation, sp_mesh, a mesh in from_pretrained, MoE and
-sliding-window targets.
+Sampling: an engine built at temperature > 0 runs the sampled round (as in
+JAX, `ecfg.temperature` chooses greedy or sampled; a request's
+`temperature=` is data on a sampled engine and ignored on a greedy one).
+The three acceptance branches are JAX's: greedy; true-q when the draft
+tree carries `node_probs` (sampled candidates: acceptance "true_q" on
+static trees, "true_q_dynamic" on any); q(x) = 1 otherwise. The request's
+temperature rides in EngineState as a device scalar, floored at 1e-4 where
+it divides, and its noise comes from one `torch.Generator` per request on
+the engine's device, seeded from `seed=`: every round draws, in this order,
+the acceptance uniforms, the bonus token's, then the draft's (JAX's
+`split(state.key, 4)` order). No draw syncs with the host. The streams
+differ from `jax.random`'s, so the sampled functions take their noise as an
+argument and are held against JAX on the same uniforms.
+
+Options not ported yet raise NotImplementedError: batched generation,
+sp_mesh, a mesh in from_pretrained, MoE and sliding-window targets.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from ..ops.quant4 import quantize_draft_params4, quantize_target_params4
 from ..ops.tree import Tree
 from . import accept as accept_mod
 from .drafter import StaticTreeSpec, draft_round, draft_round_static
+from .sampling import U_MIN, categorical, process_logits, uniform
 
 
 class EngineState(NamedTuple):
@@ -60,6 +74,10 @@ class EngineState(NamedTuple):
     dcache: KVCache        # draft KV (pairs)
     tree: Tree             # next tree to verify
     done: torch.Tensor     # scalar bool — sequence finished
+    # the request's sampling temperature as a device scalar (read only by a
+    # sampled engine) and its noise generator (None on a greedy engine)
+    temperature: Optional[torch.Tensor] = None
+    gen: Optional[torch.Generator] = None
 
 
 class RoundOutput(NamedTuple):
@@ -90,9 +108,6 @@ class EagleEngine:
                  eos_token_id: Optional[int] = None, sp_mesh=None,
                  device=None):
         self.device = resolve_device(device)
-        if ecfg.temperature > 0:
-            raise NotImplementedError("temperature > 0 (sampled acceptance) "
-                                      "is not ported yet")
         if ecfg.kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {ecfg.kv_quant!r} "
                              "(expected 'none' | 'int8')")
@@ -161,8 +176,8 @@ class EagleEngine:
         vanilla decode). draft_quant: the same choices for the draft head
         (lossless). kv_quant: None | "int8". quant_group: int4 scale-group
         size along K. total_tokens = -1 tunes the tree size with
-        `calibrate_total_tokens`. Greedy options only: temperature > 0 and a
-        mesh raise."""
+        `calibrate_total_tokens`. temperature > 0 builds a sampled engine. A
+        mesh raises."""
         from ..models.hf_loader import load_draft, load_target
 
         if mesh is not None:
@@ -197,10 +212,12 @@ class EagleEngine:
                            eos_token_id=self.eos_token_id, device=self.device)
 
     def with_sampling(self, sampled: bool) -> "EagleEngine":
-        if not sampled:
+        """Sibling engine sharing all params, greedy (sampled=False) or
+        sampled at temperature 1.0 (sampled=True); `self` when it already is.
+        A sampled engine takes any request temperature t > 0 as data."""
+        if (self.ecfg.temperature > 0) == bool(sampled):
             return self
-        raise NotImplementedError("sampled engines (temperature > 0) are not "
-                                  "ported yet")
+        return self._sibling(temperature=1.0 if sampled else 0.0)
 
     def with_tree(self, total_tokens: Optional[int] = None,
                   depth: Optional[int] = None,
@@ -259,20 +276,57 @@ class EagleEngine:
     # speculative path
     # ------------------------------------------------------------------
 
-    def _draft_round(self, ext_tokens, ext_feats, n_new, dcache):
+    @property
+    def sampled(self) -> bool:
+        return self.ecfg.temperature > 0
+
+    def _noise(self, gen: Optional[torch.Generator]):
+        """The drafter's noise: Gumbel uniforms from the request's generator
+        (None on a greedy engine)."""
+        if gen is None:
+            return None
+        return lambda shape: uniform(gen, shape, self.device, U_MIN)
+
+    def _draft_round(self, ext_tokens, ext_feats, n_new, dcache, temperature=None,
+                     gen=None):
+        noise = self._noise(gen)
         if self.static_spec is not None:
             return draft_round_static(self.dparams, self.dcfg, self.static_spec,
                                       ext_tokens, ext_feats, n_new, dcache,
-                                      self._lm_head_w, ecfg=self.ecfg)
+                                      self._lm_head_w, ecfg=self.ecfg, noise=noise,
+                                      temperature=temperature)
         return draft_round(self.dparams, self.dcfg, self.ecfg, ext_tokens,
-                           ext_feats, n_new, dcache, self._lm_head_w)
+                           ext_feats, n_new, dcache, self._lm_head_w, noise=noise,
+                           temperature=temperature)
 
-    def _pick_token(self, logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits)
+    def _pick_token(self, logits: torch.Tensor, temperature=None,
+                    gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Greedy: the argmax. Sampled: a draw from the processed
+        distribution at the request's temperature (floored at 1e-4)."""
+        if not self.sampled:
+            return torch.argmax(logits)
+        e = self.ecfg
+        p = torch.softmax(process_logits(logits, temperature.clamp_min(1e-4),
+                                         e.sampling_top_k, e.top_p), dim=-1)
+        return categorical(p, uniform(gen, p.shape, self.device, U_MIN))
+
+    def _request(self, temperature: Optional[float], seed: int):
+        """A sampled request's (temperature as a device scalar, generator on
+        the engine's device seeded with `seed`); (None, None) on a greedy
+        engine."""
+        if not self.sampled:
+            return None, None
+        t = self.ecfg.temperature if temperature is None else temperature
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return torch.tensor(float(t), dtype=torch.float32, device=self.device), gen
 
     def _prefill(self, tokens: torch.Tensor, prompt_len: int, cache: KVCache,
-                 dcache: KVCache, ref: Optional[torch.Tensor] = None) -> EngineState:
-        """Prompt prefill + first draft tree. tokens: [1, Tp] padded."""
+                 dcache: KVCache, ref: Optional[torch.Tensor] = None,
+                 temperature: Optional[torch.Tensor] = None,
+                 gen: Optional[torch.Generator] = None) -> EngineState:
+        """Prompt prefill + first draft tree. tokens: [1, Tp] padded. A
+        sampled engine draws the root token, then the draft's noise."""
         dev = self.device
         Tp = tokens.shape[1]
         S = cache.max_len
@@ -281,7 +335,7 @@ class EagleEngine:
                                   prefill_mask(Tp, S, cache.length))
         last_logits = transformer.lm_head(self.params, self.cfg,
                                           res.hidden[0, prompt_len - 1])
-        root = self._pick_token(last_logits)
+        root = self._pick_token(last_logits, temperature, gen)
         if ref is not None:  # forced replay: the first token is pinned too
             root = ref[prompt_len]
         plen = torch.tensor(prompt_len, dtype=torch.long, device=dev)
@@ -289,12 +343,13 @@ class EagleEngine:
         feats = _target_feats(res, self.dcfg.version)[0]
         ext_tokens = torch.cat([tokens[0, 1:], torch.zeros(1, dtype=torch.long, device=dev)])
         ext_tokens[prompt_len - 1] = root
-        dr = self._draft_round(ext_tokens, feats, plen, dcache)
+        dr = self._draft_round(ext_tokens, feats, plen, dcache, temperature, gen)
         tokens_buf = torch.zeros((1, S), dtype=torch.long, device=dev)
         tokens_buf[:, :Tp] = tokens
         return EngineState(tokens=tokens_buf, length=plen, cache=cache,
                            dcache=dr.dcache, tree=dr.tree,
-                           done=torch.zeros((), dtype=torch.bool, device=dev))
+                           done=torch.zeros((), dtype=torch.bool, device=dev),
+                           temperature=temperature, gen=gen)
 
     def _round(self, state: EngineState, ref: Optional[torch.Tensor] = None,
                kv_limit: Optional[int] = None):
@@ -333,16 +388,25 @@ class EagleEngine:
 
         # --- acceptance
         with record_function("round.accept"):
-            if ref is not None:
+            if self.sampled:
+                # the round's draws, in order: acceptance, bonus, draft
+                temp = state.temperature.clamp_min(1e-4)
+                u = uniform(state.gen, (P - 1, tree.children.shape[1]), dev)
+                rule = (accept_mod.accept_sampled if tree.node_probs is None
+                        else accept_mod.accept_sampled_true_q)
+                acc = rule(tree, logits, u, e, P, temperature=temp)
+                bonus = categorical(acc.sample_p,
+                                    uniform(state.gen, acc.sample_p.shape, dev, U_MIN))
+            elif ref is not None:
                 ref_next = ref[window(Lc + 1, P, ref.shape[0])]
                 acc = accept_mod.accept_greedy(tree, logits, P, ref_next=ref_next)
-                bonus = ref_next[acc.accept_len]
+                bonus = ref_next.index_select(0, acc.accept_len.reshape(1))[0]
             else:
                 acc = accept_mod.accept_greedy(tree, logits, P)
                 # the vanilla rule, argmax of the final node's logits (path
                 # repeats it past the accepted length): an argmax after the
                 # softmax would tie two logits one ulp apart
-                bonus = torch.argmax(logits[acc.path[-1]])
+                bonus = torch.argmax(logits.index_select(0, acc.path[-1:])[0])
 
         # --- commit tokens + compact KV
         with record_function("round.commit"):
@@ -372,18 +436,16 @@ class EagleEngine:
             ext_tokens = torch.where(torch.arange(P, device=dev) == acc.accept_len,
                                      bonus, ext_tokens)
             ext_feats = feats[acc.path]
-            dr = self._draft_round(ext_tokens, ext_feats, n_acc, state.dcache)
+            dr = self._draft_round(ext_tokens, ext_feats, n_acc, state.dcache,
+                                   state.temperature, state.gen)
 
-        new_state = EngineState(tokens=state.tokens, length=Lc + n_acc,
-                                cache=cache, dcache=dr.dcache, tree=dr.tree,
-                                done=done)
+        new_state = state._replace(length=Lc + n_acc, cache=cache, dcache=dr.dcache,
+                                   tree=dr.tree, done=done)
         return new_state, RoundOutput(new_tokens=path_tokens,
                                       accept_len=n_acc - 1, done=done,
                                       live_match=acc.live_match)
 
-    def _start(self, prompt_ids, temperature, ref=None):
-        if temperature:
-            raise NotImplementedError("temperature > 0 is not ported yet")
+    def _start(self, prompt_ids, temperature=None, ref=None, seed: int = 0):
         prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
         Lp = prompt.shape[1]
         Tp = self._bucket(Lp)
@@ -391,15 +453,18 @@ class EagleEngine:
         padded[0, :Lp] = prompt
         cache, dcache = self.init_caches()
         toks = torch.from_numpy(padded).to(self.device)
+        temp, gen = self._request(temperature, seed)
         with torch.no_grad():
-            state = self._prefill(toks, Lp, cache, dcache, ref=ref)
+            state = self._prefill(toks, Lp, cache, dcache, ref=ref, temperature=temp,
+                                  gen=gen)
         return prompt, Lp, state
 
-    def _host_rounds(self, prompt_ids, max_new_tokens, eos_token_id, temperature):
+    def _host_rounds(self, prompt_ids, max_new_tokens, eos_token_id, temperature,
+                     seed):
         """The per-round host loop behind `generate` and `generate_stream`:
         yields (all ids so far as a list, this round's accept_len) after every
         round, one sync per round."""
-        prompt, Lp, state = self._start(prompt_ids, temperature)
+        prompt, Lp, state = self._start(prompt_ids, temperature, seed=seed)
         out = list(prompt[0])
         new_tokens = 0
         with torch.no_grad():
@@ -426,12 +491,13 @@ class EagleEngine:
                  temperature: Optional[float] = None):
         """Speculative generation with a per-round host loop. Returns np token
         ids (prompt + completion); log=True also (new_tokens, rounds);
-        details=True returns (ids, stats-dict)."""
-        del seed  # greedy: no randomness
+        details=True returns (ids, stats-dict). A sampled engine draws from
+        a generator seeded with `seed` at `temperature` (default: the
+        engine's)."""
         out = list(np.asarray(prompt_ids, np.int64).ravel())
         accept_lens = []
         for out, alen in self._host_rounds(prompt_ids, max_new_tokens,
-                                           eos_token_id, temperature):
+                                           eos_token_id, temperature, seed):
             accept_lens.append(alen)
         new_tokens = len(out) - np.asarray(prompt_ids).size
         rounds = len(accept_lens)
@@ -447,12 +513,12 @@ class EagleEngine:
                         temperature: Optional[float] = None):
         """Streaming speculative generation: yields (all_ids_so_far,
         round_stats) after every decode round, for token-streaming front
-        ends. One host sync per yielded round."""
-        del seed
+        ends. One host sync per yielded round. `seed` and `temperature` as in
+        `generate`."""
         n_prompt = np.asarray(prompt_ids).size
         rounds = 0
         for out, alen in self._host_rounds(prompt_ids, max_new_tokens,
-                                           eos_token_id, temperature):
+                                           eos_token_id, temperature, seed):
             rounds += 1
             yield np.asarray(out), {"new_tokens": len(out) - n_prompt,
                                     "rounds": rounds, "accept_len": alen}
@@ -518,15 +584,15 @@ class EagleEngine:
         max_new_tokens by up to one round's window, trimmed host-side. With
         `kv_buckets` every round runs against the smallest bucket that holds
         its context. force_tokens: forced-replay reference starting with the
-        prompt; with log=True returns (ids, committed, rounds, live_match),
-        else with log=True (ids, committed, rounds)."""
-        del seed
+        prompt (greedy engines only); with log=True returns (ids, committed,
+        rounds, live_match), else with log=True (ids, committed, rounds).
+        `seed` and `temperature` as in `generate`: sampling adds no sync."""
         ref = None
         if force_tokens is not None:
             prompt_row = np.asarray(prompt_ids, np.int64).ravel()
             ref = torch.from_numpy(self._make_ref_buf(
                 force_tokens, prompt_row, max_new_tokens)).to(self.device)
-        prompt, Lp, state = self._start(prompt_ids, temperature, ref=ref)
+        prompt, Lp, state = self._start(prompt_ids, temperature, ref=ref, seed=seed)
         rounds = 0
         hits = torch.zeros((), dtype=torch.long, device=self.device)
         with torch.no_grad():
@@ -558,9 +624,10 @@ class EagleEngine:
     # ------------------------------------------------------------------
 
     def _vanilla_step(self, cache: KVCache, token: torch.Tensor,
-                      kv_limit: Optional[int] = None):
+                      kv_limit: Optional[int] = None, temperature=None, gen=None):
         if kv_limit is not None and kv_limit < cache.max_len:
-            new_small, nxt = self._vanilla_step(slice_rows(cache, kv_limit), token)
+            new_small, nxt = self._vanilla_step(slice_rows(cache, kv_limit), token,
+                                                temperature=temperature, gen=gen)
             # a vanilla step appends one row at `length`, through the view
             return merge_rows_window(cache, new_small, cache.length, 1), nxt
         S = cache.max_len
@@ -568,13 +635,12 @@ class EagleEngine:
         res = transformer.forward(self.params, self.cfg, token.reshape(1, 1),
                                   cache, pos, prefill_mask(1, S, cache.length))
         logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, 0])
-        return res.cache, self._pick_token(logits)
+        return res.cache, self._pick_token(logits, temperature, gen)
 
-    def _vanilla_prefill(self, prompt_ids, temperature):
+    def _vanilla_prefill(self, prompt_ids, temperature, seed):
         """Prompt forward of the baseline: (prompt [1, Lp], Lp, cache, first
-        token as a device scalar)."""
-        if temperature:
-            raise NotImplementedError("temperature > 0 is not ported yet")
+        token as a device scalar, the request's (temperature, generator))."""
+        request = self._request(temperature, seed)
         prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
         Lp = prompt.shape[1]
         Tp = self._bucket(Lp)
@@ -587,18 +653,18 @@ class EagleEngine:
                                   torch.arange(Tp, device=dev)[None],
                                   prefill_mask(Tp, cache.max_len, cache.length))
         logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, Lp - 1])
-        token = self._pick_token(logits)
+        token = self._pick_token(logits, *request)
         cache = with_length(res.cache, torch.full((1,), Lp, dtype=torch.long, device=dev))
-        return prompt, Lp, cache, token
+        return prompt, Lp, cache, token, request
 
     def generate_vanilla_stream(self, prompt_ids, max_new_tokens: int = 512,
                                 eos_token_id: Optional[int] = None, seed: int = 0,
                                 temperature: Optional[float] = None):
         """Streaming vanilla decoding: yields (all_ids_so_far, stats) per
-        token, one host sync each."""
-        del seed
+        token, one host sync each. `seed` and `temperature` as in `generate`."""
         with torch.no_grad():
-            prompt, _, cache, token = self._vanilla_prefill(prompt_ids, temperature)
+            prompt, _, cache, token, request = self._vanilla_prefill(prompt_ids,
+                                                                     temperature, seed)
             out = list(prompt[0])
             for n in range(max_new_tokens):
                 t = int(token)
@@ -609,16 +675,18 @@ class EagleEngine:
                     break
                 if len(out) + 1 >= self.ecfg.max_len:
                     break
-                cache, token = self._vanilla_step(cache, token)
+                cache, token = self._vanilla_step(cache, token, None, *request)
 
     def generate_vanilla(self, prompt_ids, max_new_tokens: int = 512,
                          eos_token_id: Optional[int] = None, seed: int = 0,
                          fused: bool = False,
                          temperature: Optional[float] = None):
-        """Plain autoregressive greedy decoding (the baseline). fused=True
-        keeps every token on the device until the end (no per-token sync)
-        and, with `kv_buckets`, runs each step against the bucket that
-        `_bucket_index` gives for its length, as `generate_fused` does."""
+        """Plain autoregressive decoding (the baseline), greedy or, on a
+        sampled engine, sampled (`seed` and `temperature` as in `generate`).
+        fused=True keeps every token on the device until the end (no
+        per-token sync) and, with `kv_buckets`, runs each step against the
+        bucket that `_bucket_index` gives for its length, as `generate_fused`
+        does."""
         if not fused:
             out = np.asarray(prompt_ids, np.int64).ravel()
             for out, _ in self.generate_vanilla_stream(
@@ -626,12 +694,13 @@ class EagleEngine:
                 pass
             return out
         with torch.no_grad():
-            prompt, Lp, cache, token = self._vanilla_prefill(prompt_ids, temperature)
+            prompt, Lp, cache, token, request = self._vanilla_prefill(
+                prompt_ids, temperature, seed)
             out = list(prompt[0])
             steps = [token][:max_new_tokens]
             for i in range(max_new_tokens - 1):
-                cache, token = self._vanilla_step(cache, token,
-                                                  kv_limit=self._kv_limit(Lp + i))
+                cache, token = self._vanilla_step(cache, token, self._kv_limit(Lp + i),
+                                                  *request)
                 steps.append(token)
             for t in (torch.stack(steps).cpu().numpy() if steps else ()):
                 out.append(int(t))

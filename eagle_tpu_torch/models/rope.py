@@ -33,10 +33,19 @@ def rope_inv_freq(cfg: RopeConfig, head_dim: int, seq_len: int | None = None) ->
     return inv_freq.astype(np.float32)
 
 
+# (cfg, head_dim, device) -> inverse frequencies on that device: copied from
+# the host once, since a copy from pageable host memory waits for the device
+_INV_FREQ: dict = {}
+
+
 def rope_tables(cfg: RopeConfig, head_dim: int,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for integer positions [...] → ([..., head_dim],)*2 fp32."""
-    inv_freq = torch.from_numpy(rope_inv_freq(cfg, head_dim)).to(positions.device)
+    key = (cfg, head_dim, str(positions.device))
+    inv_freq = _INV_FREQ.get(key)
+    if inv_freq is None:
+        inv_freq = _INV_FREQ[key] = torch.from_numpy(
+            rope_inv_freq(cfg, head_dim)).to(positions.device)
     pos = positions.to(torch.float32)
     if cfg.scaling_type == "linear":
         pos = pos / cfg.scaling_factor

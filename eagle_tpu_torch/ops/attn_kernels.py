@@ -6,7 +6,8 @@ PyTorch versions.
   `tree_attention_ref`, a port of pallas_attn.tree_attention_xla. In bf16
   it runs on tensor cores, split over the prefix in chunks of `TREE_CHUNK`
   keys, and merges the chunks' partials in the same launch; `tree_plan`
-  gives the launch its grid.
+  gives the launch its grid and the padded head width it runs at (any
+  head_dim up to `TREE_MAX_HEAD_DIM`).
 - `compact_rows` (csrc/compact_rows.cu) replaces
   pallas_attn.py:_compact_kernel; its plain version is
   ops/kv_cache.compact_accepted (`compact_rows_plain`).
@@ -99,31 +100,35 @@ def tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
 
 
 # query rows and prefix keys a block of the bf16 kernel: its geometry, which
-# the launch checks against its own; the head widths it is built for
+# the launch checks against its own; the padded head widths the kernels are
+# built at (a head_dim runs at the smallest that holds it)
 TREE_ROWS, TREE_CHUNK = 64, 256
-TREE_HEAD_DIMS = (64, 128)
+TREE_HEAD_PADS = (64, 128, 256)
+TREE_MAX_HEAD_DIM = TREE_HEAD_PADS[-1]
 
 
 def tree_plan(T: int, nq: int, n_kv: int, S_rows: int, d: int) -> dict:
     """Grid of the bf16 kernel from host-known numbers only: (row tiles of
     the T*g query rows of a kv head, prefix chunks + 1 for the tree's own
-    keys, n_kv heads). S_rows is the cache's row count (a view's, for a
+    keys, n_kv heads), and `head_pad`, the padded head width both kernels
+    run at for head_dim `d` (zeros past d in shared memory; the partials
+    are laid out by it). S_rows is the cache's row count (a view's, for a
     row-sliced cache), not its head stride. Prefix chunk c covers keys
     [c*TREE_CHUNK, min((c+1)*TREE_CHUNK, start)); a chunk with no key below
-    the device's `start` exits at once. The grid does not depend on the head
-    width `d`, which must be one the kernels are built for."""
-    if d not in TREE_HEAD_DIMS:
-        raise ValueError(f"tree_attention: head_dim {d} is not built; the kernels "
-                         f"take head_dim {' or '.join(map(str, TREE_HEAD_DIMS))}")
+    the device's `start` exits at once."""
+    if not 1 <= d <= TREE_MAX_HEAD_DIM:
+        raise ValueError(f"tree_attention: head_dim {d} is not built; the kernels take "
+                         f"head_dim 1 .. {TREE_MAX_HEAD_DIM}")
     return {"row_tiles": -(-T * (nq // n_kv) // TREE_ROWS),
-            "chunks": -(-S_rows // TREE_CHUNK)}
+            "chunks": -(-S_rows // TREE_CHUNK),
+            "head_pad": next(p for p in TREE_HEAD_PADS if d <= p)}
 
 
 # CUDA stream -> the bf16 kernel's merge counters, one per (kv head, row
 # tile): zero, and left zero by every launch
 _COUNTERS: dict = {}
 
-_TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+_TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
@@ -159,7 +164,8 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     head_stride = _row_stride(k_cache, d, "tree_attention")
     if _row_stride(v_cache, d, "tree_attention") != head_stride:
         raise ValueError("tree_attention: k_cache and v_cache must share one layout")
-    if any(t.data_ptr() % 16 for t in tensors[:5]):
+    if (d * q.element_size()) % 16 == 0 and any(t.data_ptr() % 16 for t in tensors[:5]):
+        # rows of a whole number of 16-byte chunks load by 16-byte copies
         raise ValueError("tree_attention: q/k/v must be 16-byte aligned")
     # temporaries passed by pointer (st, the partials, p32 below) may be freed
     # when the wrapper returns: the caching allocator reuses their memory only
@@ -169,7 +175,8 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     plan = tree_plan(T, nq, n_kv, S, d)
     slots = n_kv * plan["row_tiles"] * (plan["chunks"] + 1)
     if q.dtype == torch.bfloat16:
-        part_acc = torch.empty(slots * TREE_ROWS * d, dtype=torch.float32, device=dev)
+        part_acc = torch.empty(slots * TREE_ROWS * plan["head_pad"], dtype=torch.float32,
+                               device=dev)
         part_ml = torch.empty(slots * 2 * TREE_ROWS, dtype=torch.float32, device=dev)
         counters = _launch.zeroed_counters(_COUNTERS, torch.cuda.current_stream(dev),
                                            n_kv * plan["row_tiles"])
@@ -180,8 +187,8 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              k_tree.data_ptr(), v_tree.data_ptr(), tree_mask.data_ptr(),
              st.data_ptr(), out.data_ptr(), *scratch, _DTYPE_CODE[q.dtype], T, Tk,
-             nq, n_kv, S, head_stride, d, TREE_ROWS, TREE_CHUNK, plan["row_tiles"],
-             plan["chunks"], d ** -0.5, _stream())
+             nq, n_kv, S, head_stride, d, plan["head_pad"], TREE_ROWS, TREE_CHUNK,
+             plan["row_tiles"], plan["chunks"], d ** -0.5, _stream())
     _check_launch("tree_attention", err)
     LAUNCHES["tree_attention"] += 1
     return out

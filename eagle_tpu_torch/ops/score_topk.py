@@ -9,6 +9,9 @@ and the stable-sort `topk_rows`. For an int4 head the kernel runs B3/B4's
 main loop on int8 tensor cores and merges its column tiles in the same
 launch, as `score_plan` plans it (`w4_score_kernel` launches it on rows
 already quantized); an int8 head keeps a tile kernel and a merge kernel.
+Past `MAX_K` (one column tile) both heads take a second route in the same
+wrapper: the tile pass writes the logits, and a selection kernel picks each
+row's k best by an exact radix select (two launches).
 
 Contract: candidate ids are bit-identical to the unfused chain (the same
 logit values, the same order: value descending, then index ascending);
@@ -33,9 +36,12 @@ from .quant4 import (W4_STAGE_ROWS, W4_STAGES, W4_SMEM_MAX, _blocks_of, _k_of,
 # columns for w4, 64 for w8) and then over the tiles, instead of along the
 # row; a few f32 ulp of a value of magnitude ~10
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
-# k the kernels take (one column tile), and k up to which the w4 merge holds
-# its candidates in registers (past it: a k-way merge over the tiles)
+# k the fused route takes (one column tile; past it the select route), and k
+# up to which the w4 merge holds its candidates in registers (past it: a
+# k-way merge over the tiles)
 MAX_K, SMALL_K = 128, 16
+# candidates the select route sorts in shared memory (past it: in workspace)
+SORT_SMEM = 8192
 
 
 def topk_rows(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,20 +94,34 @@ def score_plan(M: int, K: int, V: int, G: int, k: int) -> ScorePlan:
     rows, 128 columns a block. Its shared memory holds, one after the other
     in time, the main loop's ring, the tile's logits and the merge's state
     per warp: the T tile heads, and for k > SMALL_K also each tile's next
-    candidate and its position."""
+    candidate and its position. Past MAX_K (the select route) the tiles
+    write their logits out and the shared memory is the ring alone."""
     if M < 1:
         raise ValueError(f"score_plan: M={M} rows (at least 1)")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"score_plan: k={k} (1 .. {MAX_K}, one column tile)")
+    if not 1 <= k <= V:
+        raise ValueError(f"score_plan: k={k} (1 .. V={V})")
     bm = next((b for b in SCORE_ROW_TILES if M <= b), SCORE_ROW_TILES[-1])
     T = -(-V // SCORE_NTILE)
     group = K // G
     vec = K % 16 == 0 and group % 16 == 0 and (K // 2) % 16 == 0 and V % 4 == 0
     ring = W4_STAGES * (bm * (4 * W4_STAGE_ROWS + 16) + bm * 4 + SCORE_NTILE * 4
                         + W4_STAGE_ROWS * (SCORE_NTILE + 8) * 4)
+    if k > MAX_K:
+        return ScorePlan(bm, vec, (-(-M // bm), T), ring)
     logits = bm * (SCORE_NTILE + 8) * 4
     heads = SCORE_WARPS * T * (20 if k > SMALL_K else 8)
     return ScorePlan(bm, vec, (-(-M // bm), T), max(ring, logits, heads))
+
+
+def workspace_words(M: int, V: int, k: int, tiles: int) -> int:
+    """4-byte words of a launch's workspace: per (row, tile) its max, sum and
+    k candidates up to MAX_K; past it, the logits [M, V] (rounded up to an
+    even count) and, when k rounded up to a power of two exceeds SORT_SMEM,
+    the sort's [M, n2] 8-byte keys."""
+    if k <= MAX_K:
+        return M * tiles * (2 + 2 * k)
+    n2 = 1 << (k - 1).bit_length()
+    return (M * V + 1) // 2 * 2 + (2 * M * n2 if n2 > SORT_SMEM else 0)
 
 
 # CUDA stream -> the w4 kernel's merge counters (one per row tile), zero
@@ -127,7 +147,7 @@ def w4_score_kernel(xq: torch.Tensor, sx: torch.Tensor, rs: torch.Tensor,
         raise ValueError(f"score_topk_quant: V={V} needs {p.smem} B of shared memory")
     dev = xq.device
     T = p.grid[1]
-    ws = torch.empty(M * T * (2 + 2 * k), dtype=torch.int32, device=dev)
+    ws = torch.empty(workspace_words(M, V, k, T), dtype=torch.int32, device=dev)
     counters = _launch.zeroed_counters(_COUNTERS, torch.cuda.current_stream(dev), p.grid[0])
     scores = torch.empty((M, k), dtype=torch.float32, device=dev)
     ids = torch.empty((M, k), dtype=torch.int64, device=dev)
@@ -147,7 +167,7 @@ def _w8_score(h2d: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, k: int):
     xq, sx = quantize_rows(h2d)
     xq = xq.contiguous()
     T = -(-V // W8_TILE)
-    ws = torch.empty(M * T * (2 + 2 * k), dtype=torch.int32, device=dev)
+    ws = torch.empty(workspace_words(M, V, k, T), dtype=torch.int32, device=dev)
     scores = torch.empty((M, k), dtype=torch.float32, device=dev)
     ids = torch.empty((M, k), dtype=torch.int64, device=dev)
     fn = _launch.entry_point("score_topk", _W8_ARGS, "score_topk_w8_launch")
@@ -161,8 +181,9 @@ def _w8_score(h2d: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, k: int):
 
 def score_topk_quant(h2d: torch.Tensor, qw: dict, k: int):
     """[M, K] float rows x quantized lm_head -> (log-softmax top-k scores
-    [M, k] f32, ids [M, k] int64). CUDA tensors run csrc/score_topk.cu (one
-    launch for int4, two for int8); CPU tensors run `score_topk_ref`. The
+    [M, k] f32, ids [M, k] int64), any k <= V. CUDA tensors run
+    csrc/score_topk.cu (k <= MAX_K: one launch for int4, two for int8; past
+    it, two for either); CPU tensors run `score_topk_ref`. The
     rows are quantized in plain torch (the one rule, ops/quant.quantize_rows);
     the kernel rounds its logits through h2d's dtype as the unfused chain
     does."""
@@ -186,9 +207,8 @@ def score_topk_quant(h2d: torch.Tensor, qw: dict, k: int):
         raise ValueError(f"{name}: weights must be contiguous")
     if (_k_of(qw) if kind == "w4" else q.shape[0]) != K or K % 8:
         raise ValueError(f"{name}: rows have K={K}, the head {tuple(q.shape)}")
-    if not (M >= 1 and 1 <= k <= min(MAX_K, V)):
-        raise ValueError(f"{name}: M={M} (>= 1), k={k} (<= {MAX_K}, <= V={V}): k past "
-                         f"{MAX_K}, one column tile, is not built")
+    if not (M >= 1 and 1 <= k <= V):
+        raise ValueError(f"{name}: M={M} (>= 1), k={k} (1 .. V={V})")
     if kind == "w8":
         return _w8_score(h2d, q, scale, k)
     G = scale.shape[0]

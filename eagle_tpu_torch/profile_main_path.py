@@ -1,6 +1,7 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
-    python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8|hd64 ...] [--out DIR]
+    python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8|hd64 ...]
+        [--temperature T] [--out DIR]
 
 Builds a full-width engine (eagle_tpu_torch/full_width.py: the bf16 path;
 `int4`, the int4 serving path: w4a8 target, int4 draft, fused draft scoring;
@@ -18,6 +19,11 @@ compares two of them on one card under one host):
     the host), kernel launches per round, the four round steps
     (round.verify / accept / commit / draft spans, host and device ms) and
     the kernels by device time.
+With --temperature T > 0 each path runs sampled rounds instead, on a sibling
+engine at temperature T with top_p 0.9 and the path's sampled acceptance
+(SAMPLED_ACCEPTANCE: the static tree's sampled candidates and the int4
+path's two-pass dynamic drafting take the true-q rule, the other dynamic
+trees the q(x) = 1 rule), so the profile shows what sampling adds to a round.
 Writes the profiler tables to DIR/profile_main_path[_PATH].txt (default
 profile_out/) and prints one JSON line of results per path. Needs CUDA.
 """
@@ -41,6 +47,10 @@ from .ops import attn_kernels as ak
 ROUNDS = 12
 CONTEXT = 1000
 PATHS = ("bf16", "int4", "static", "kv8", "hd64")
+# the acceptance a path's sampled rounds run under --temperature
+SAMPLED_ACCEPTANCE = {"bf16": "true_q", "int4": "true_q_dynamic", "static": "true_q",
+                      "kv8": "true_q", "hd64": "true_q"}
+SAMPLED_TOP_P = 0.9
 
 
 def _dev_total(evt) -> float:
@@ -78,7 +88,8 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
         step_ms = []
         for i in range(ROUNDS + 3):
             t0 = time.perf_counter()
-            cache, token = eng._vanilla_step(cache, token)
+            cache, token = eng._vanilla_step(cache, token, None, state.temperature,
+                                             state.gen)
             torch.cuda.synchronize()
             if i >= 3:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -119,6 +130,7 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
     round_med = float(np.median(round_ms))
     result = {
         "card": card, "path": path, "context": CONTEXT,
+        "temperature": eng.ecfg.temperature, "acceptance": eng.ecfg.acceptance,
         "rounds": n, "tree_nodes": eng.ecfg.tree_size, "kv_limit": kv_limit,
         "round_ms_median": round_med,
         "vanilla_step_ms_median": float(np.median(step_ms)),
@@ -133,7 +145,8 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
         "launches_per_round": {k: v / n for k, v in ak.LAUNCHES.items() if v},
     }
     os.makedirs(out_dir, exist_ok=True)
-    suffix = "" if path == "bf16" else "_" + path
+    suffix = ("" if path == "bf16" else "_" + path) + (
+        f"_t{eng.ecfg.temperature:g}" if eng.sampled else "")
     with open(os.path.join(out_dir, f"profile_main_path{suffix}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n\n")
@@ -145,6 +158,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--path", choices=PATHS, nargs="+", default=["bf16"])
+    ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args()
     paths = args.path
     if not torch.cuda.is_available():
@@ -165,8 +179,11 @@ def main() -> None:
             base = engines["bf16"] = engines.get("bf16") or full_width.engine(dev)
             if path in siblings:
                 engines[path] = siblings[path](dev, base=base)
-        print(json.dumps(profile_path(path, engines[path], smi.stdout.strip(), args.out)),
-              flush=True)
+        eng = engines[path]
+        if args.temperature > 0:
+            eng = eng._sibling(temperature=args.temperature, top_p=SAMPLED_TOP_P,
+                               acceptance=SAMPLED_ACCEPTANCE[path])
+        print(json.dumps(profile_path(path, eng, smi.stdout.strip(), args.out)), flush=True)
 
 
 if __name__ == "__main__":

@@ -97,20 +97,22 @@ def test_tree_plan_covers_every_prefix_row_once(T, S_rows, head_rows):
         assert covered == list(range(min(start, S_rows))), start
 
 
-def _split_merge(q, kc, vc, kt, vt, tm, start):
+def _split_merge(q, kc, vc, kt, vt, tm, start, scale=None):
     """The bf16 kernel's arithmetic in plain f32 torch: one partial (row max m,
     row sum l, unnormalised acc) per prefix chunk below `start` and one for
-    the tree's keys, merged in chunk order."""
+    the tree's keys, merged in chunk order. `scale` defaults to d^-0.5 of
+    q's width (a zero-padded q passes its true width's)."""
     T, nq, d = q.shape
     n_kv, S, _ = kc.shape
     g = nq // n_kv
+    scale = d ** -0.5 if scale is None else scale
     qh = q.reshape(T, n_kv, g, d).permute(1, 2, 0, 3)                   # [h, g, T, d]
     plan = ak.tree_plan(T, nq, n_kv, S, 128)     # the grid does not depend on d
     parts = []
     for _, k0, k1 in _key_ranges(plan, start, S):
-        parts.append((torch.einsum("hgtd,hsd->hgts", qh, kc[:, k0:k1]) * d ** -0.5,
+        parts.append((torch.einsum("hgtd,hsd->hgts", qh, kc[:, k0:k1]) * scale,
                       vc[:, k0:k1]))
-    st = torch.einsum("hgtd,hsd->hgts", qh, kt.transpose(0, 1)) * d ** -0.5
+    st = torch.einsum("hgtd,hsd->hgts", qh, kt.transpose(0, 1)) * scale
     parts.append((torch.where(tm[None, None], st, torch.tensor(ak.NEG_INF)),
                   vt.transpose(0, 1)))
     ms, ls, accs = [], [], []
@@ -161,13 +163,43 @@ def test_head_dim_64_matches_jax_kernel(start):
 
 
 def test_tree_plan_takes_head_dims_64_and_128():
-    """The kernels are built for head_dim 64 and 128; any other head_dim is
-    refused before a launch, by a message that names the two."""
-    plans = [ak.tree_plan(61, 32, 8, 2176, d) for d in ak.TREE_HEAD_DIMS]
-    assert ak.TREE_HEAD_DIMS == (64, 128) and plans[0] == plans[1]
-    for d in (32, 96, 256):
-        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+    """Every head_dim from 1 to 256 is taken (64 and 128 among them), at the
+    smallest padded width of 64, 128 and 256 that holds it; the grid does
+    not depend on it; past 256 the plan refuses before a launch."""
+    base = ak.tree_plan(61, 32, 8, 2176, 128)
+    assert ak.TREE_HEAD_PADS == (64, 128, 256) and ak.TREE_MAX_HEAD_DIM == 256
+    for d in range(1, 257):
+        plan = ak.tree_plan(61, 32, 8, 2176, d)
+        pad = 64 if d <= 64 else 128 if d <= 128 else 256
+        assert plan == dict(base, head_pad=pad), d
+    for d in (0, 257, 512):
+        with pytest.raises(ValueError, match="head_dim 1 .. 256"):
             ak.tree_plan(61, 32, 8, 2176, d)
+
+
+@pytest.mark.parametrize("d,start", [(80, 300), (96, 0), (256, 520), (100, 257), (40, 600)])
+def test_padded_head_widths_match_jax_kernel(d, start):
+    """B1 at head widths the Llama-3.2-1B / Llama-3.1-8B pair does not use
+    (80, 96: Phi / StableLM-class; 256: Gemma-2/3; 100 and 40, rows that are
+    not whole 16-byte chunks in bf16): the plain version gives the
+    interpreted Pallas kernel's output, and the kernel's arithmetic at the
+    padded width (q, k and v zero-padded to `head_pad` columns, the true
+    width's scale) gives tree_attention_xla's in its first d columns of
+    each head (rtol = atol = 1e-5, the split-and-merge's sum order)."""
+    args = _inputs(13, 13, 8, 2, d, 640, seed=d + start)
+    st = jnp.int32(start)
+    jargs = [jnp.asarray(a) for a in args]
+    want = np.asarray(pallas_attn.tree_attention_xla(*jargs, st))
+    pallas = np.asarray(pallas_attn.tree_attention(*jargs, st, blk=64, interpret=True))
+    targs = [t(a) for a in args]
+    got = ak.tree_attention(*targs, torch.tensor(start))       # CPU → plain
+    for ref in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    pad = ak.tree_plan(13, 8, 2, 640, d)["head_pad"]
+    padded = [torch.nn.functional.pad(a, (0, pad - d)) for a in targs[:5]]
+    out = _split_merge(*padded, targs[5], start, scale=d ** -0.5)
+    out = out.reshape(13, 8, pad)[..., :d].reshape(13, 8 * d)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("start,path,alen", [

@@ -133,10 +133,36 @@ def test_tree_attention_kernel_head_dim_64(dev, dtype, T):
     assert ak.LAUNCHES["tree_attention"] == before + n
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 96, 256, 100, 40, 1])
+def test_tree_attention_kernel_other_head_dims(dev, dtype, d):
+    """Head widths run at a padded width (80, 96 at 128; 256 at 256; 100
+    and 40: bf16 rows that are not whole 16-byte chunks, loaded element by
+    element): T = 61, 32 q / 8 kv heads, start one below, on and one above
+    every chunk edge of a 1024-row view and the full cache, within the B1
+    tolerances."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    rng = np.random.default_rng(d)
+    T = 61
+    parents = torch.tensor([0] + [int(rng.integers(0, i)) for i in range(1, T)],
+                           device=dev)
+    kc, vc = r(8, 2176, d), r(8, 2176, d)
+    mask = ancestor_mask(parents, T).contiguous()
+    q, kt, vt = r(T, 32, d), r(T, 8, d), r(T, 8, d)
+    ch = ak.TREE_CHUNK
+    for view, starts in ((1024, [0] + [e + o for e in range(ch, 1025, ch) for o in (-1, 0, 1)]),
+                         (2176, [1500, 2176])):
+        args = (q, kc[:, :view], vc[:, :view], kt, vt, mask)
+        for start in starts:
+            st = torch.tensor(start, device=dev)
+            _b1_check(ak.tree_attention(*args, st), args, st)
+
+
 def test_tree_attention_kernel_refuses_other_head_dims(dev):
     r = lambda *s: torch.zeros(s, device=dev, dtype=torch.bfloat16)
-    for d in (32, 96):
-        with pytest.raises(ValueError, match="head_dim 64 or 128"):
+    for d in (257, 320):
+        with pytest.raises(ValueError, match="head_dim 1 .. 256"):
             ak.tree_attention(r(4, 4, d), r(2, 64, d), r(2, 64, d), r(4, 2, d), r(4, 2, d),
                               torch.ones((4, 4), dtype=torch.bool, device=dev),
                               torch.tensor(8, device=dev))
@@ -485,8 +511,34 @@ def test_score_topk_kernel_refuses_a_foreign_plan(dev):
                  out[1].data_ptr(), M, K, V, K // 128, k, 0, bm, int(p.vec), smem, gm, gn,
                  _launch.stream())
         assert err != 0, (bm, smem, gm, gn)
-    with pytest.raises(ValueError, match="128"):
-        stk.score_topk_quant(torch.zeros((33, K), device=dev), qw, 129)
+    with pytest.raises(ValueError, match="V=1000"):
+        stk.score_topk_quant(torch.zeros((33, K), device=dev), qw, V + 1)
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+@pytest.mark.parametrize("M,K,V,k", [(10, 4096, 32000, 129), (10, 4096, 32000, 256),
+                                     (1, 4096, 32000, 1024), (33, 256, 1000, 1000),
+                                     (3, 256, 20000, 9000)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_score_topk_kernel_select_route(dev, kind, M, K, V, k, ties):
+    """k past one column tile (the logits pass, then the radix select; 9000
+    sorts in the workspace): ids identical to score_topk_ref, scores within
+    SCORE_TOL, random and heavily tied logits, one counted call."""
+    g = torch.Generator(device=dev).manual_seed(k + M)
+    if ties:
+        w = torch.randint(-1, 2, (K, V), generator=g, device=dev).float().mul_(0.05)
+    else:
+        w = torch.randn((K, V), generator=g, device=dev).mul_(0.05)
+    qw = tq4.pack_w4(w) if kind == "w4" else tq.quantize_linear(w)
+    h = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    if ties:
+        h[::2] = 1.0
+    before = _launch.LAUNCHES["score_topk_quant"]
+    lp, ids = stk.score_topk_quant(h, qw, k)
+    assert _launch.LAUNCHES["score_topk_quant"] == before + 1
+    ref_lp, ref_ids = stk.score_topk_ref(h, qw, k)
+    assert torch.equal(ids, ref_ids)
+    torch.testing.assert_close(lp, ref_lp, **stk.SCORE_TOL)
 
 
 def test_quantize_rows_same_scales_on_the_card_and_the_cpu(dev):

@@ -103,14 +103,15 @@ def test_port_capacity_stop_matches_jax():
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(temperature=0.7), NotImplementedError),
+    (dict(kv_quant="int4"), ValueError),
     (dict(draft_quant="int7"), ValueError),
     (dict(acceptance="bogus"), ValueError)])
 def test_unported_engine_options_raise(change, error):
-    """Options not ported yet raise NotImplementedError; an unknown value of a
-    ported option (draft_quant, acceptance) raises ValueError as in JAX.
-    (kv_quant, kv_buckets and tree_paths are ported: tests/test_torch_kv_int8.py,
-    test_torch_kv_buckets.py, test_torch_static_tree.py.)"""
+    """An unknown value of a ported option (kv_quant, draft_quant,
+    acceptance) raises ValueError as in JAX. (kv_quant, kv_buckets,
+    tree_paths and temperature are ported: tests/test_torch_kv_int8.py,
+    test_torch_kv_buckets.py, test_torch_static_tree.py,
+    test_torch_engine_sampled.py.)"""
     je = make_engine(1)
     with pytest.raises(error):
         port_engine(je, **change)
@@ -122,8 +123,9 @@ def test_unported_entry_points_raise():
         pe.generate_batch([PROMPT, PROMPT])
     with pytest.raises(NotImplementedError):
         pe.generate_batch_fused([PROMPT, PROMPT])
+    window = dataclasses.replace(pe.cfg, sliding_window=16)
     with pytest.raises(NotImplementedError):
-        pe.generate(PROMPT, max_new_tokens=4, temperature=0.5)
+        EagleEngine(pe.params, window, pe.dparams, pe.dcfg, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError):
         EagleEngine(pe.params, pe.cfg, pe.dparams, pe.dcfg, EngineConfig(),
                     sp_mesh=object(), device="cpu")

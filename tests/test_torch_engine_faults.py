@@ -7,7 +7,11 @@ vanilla decode (CPU, fp32):
   vanilla paths, as the JAX engine does;
 - a head_dim-64 target (the Llama-3.2-1B class) with both attention-side
   kernels' paths on gives the JAX engine's tokens, whose Pallas kernels run
-  interpreted. Tolerance: none (token ids)."""
+  interpreted. Tolerance: none (token ids);
+- on the card (marked `cuda`, skipped elsewhere), a decode round, greedy or
+  sampled, never waits on the host."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -86,3 +90,34 @@ def test_head_dim_64_engine_equals_jax_engine(version):
     np.testing.assert_array_equal(pe.generate_fused(PROMPT, max_new_tokens=20), jref)
     np.testing.assert_array_equal(pe.generate_vanilla(PROMPT, max_new_tokens=20),
                                   jref[:len(PROMPT) + 20])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(), dict(tree_paths=((0,), (1,), (0, 0))), dict(kv_buckets=(256,)),
+    dict(temperature=0.7, top_p=0.9), dict(temperature=0.7, acceptance="true_q_dynamic"),
+    dict(temperature=0.7, tree_paths=((0,), (1,), (0, 0)))],
+    ids=["greedy", "static", "kv_buckets", "sampled-q1", "sampled-true_q_dynamic",
+         "sampled-static-true_q"])
+def test_a_round_never_waits_on_the_host(change):
+    """A decode round reads no device value on the host and copies nothing
+    from pageable host memory (the greedy walk once indexed by 0-d tensors
+    and every forward copied RoPE's frequencies from the host): two rounds
+    run under torch's sync debug mode "error". Needs the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    je = make_engine(3)
+    pe = port_engine(je, attn_impl="pallas_tree", compact_impl="pallas", **change)
+    eng = pe.__class__(pe.params, pe.cfg, pe.dparams, pe.dcfg,
+                       dataclasses.replace(pe.ecfg, draft_quant="none"), device="cuda")
+    _, _, st = eng._start(PROMPT, None, seed=0)
+    kv_limit = eng._kv_limit(len(PROMPT) + 3 * eng.path_len)
+    with torch.no_grad():
+        st, _ = eng._round(st, kv_limit=kv_limit)      # first use: builds, caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                st, _ = eng._round(st, kv_limit=kv_limit)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")

@@ -210,9 +210,12 @@ def test_from_pretrained_options(tmp_path, monkeypatch):
     assert tuned.ecfg.total_tokens in (40, 48, 50, 56, 60) and tuned.eos_token_id == 2
     with pytest.raises(NotImplementedError):
         EagleEngine.from_pretrained(base, ea, use_eagle3=True, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        EagleEngine.from_pretrained(base, ea, use_eagle3=True, device="cpu",
-                                    temperature=0.7)
+    hot = EagleEngine.from_pretrained(base, ea, use_eagle3=True, device="cpu",
+                                      max_len=128, dtype=torch.float32, temperature=0.7)
+    assert hot.ecfg.temperature == 0.7 and hot.sampled
+    out = hot.generate(PROMPT, max_new_tokens=8, seed=1)
+    assert len(out) == len(PROMPT) + 8
+    np.testing.assert_array_equal(hot.generate(PROMPT, max_new_tokens=8, seed=1), out)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):      # the card unless asked
         EagleEngine.from_pretrained(base, ea, use_eagle3=True)

@@ -111,14 +111,17 @@ def test_score_topk_quant_refuses_what_the_kernel_does_not_take():
     (16, 4096, 32000, 32, 16), (17, 4096, 32000, 32, 10), (32, 4096, 128256, 32, 16),
     (3, 64, 9, 2, 4), (7, 256, 1000, 16, 7), (1, 64, 70, 8, 3), (32, 512, 130, 16, 10),
     (33, 4096, 32000, 32, 17), (64, 4096, 32000, 32, 32), (10, 4096, 32000, 32, 128),
-    (80, 4096, 128256, 32, 128), (1, 256, 130, 2, 128)])
+    (80, 4096, 128256, 32, 128), (1, 256, 130, 2, 128),
+    (10, 4096, 32000, 32, 129), (1, 4096, 32000, 32, 1024), (33, 256, 1000, 16, 1000),
+    (10, 4096, 128256, 32, 128256)])
 def test_score_plan_covers_every_column_once(M, K, V, G, k):
     """The plan's column tiles cover [0, V) once and its grid matches them;
     the narrowest row tile holds M <= 32 rows, 32-row tiles cover more;
     shared memory holds the ring, the logits tile and the merge's state
     (the heads; past SMALL_K also each tile's next candidate and its
     position), within the card's 227 KB; up to SMALL_K the merge's
-    candidates fit its 8 per lane."""
+    candidates fit its 8 per lane. Past MAX_K (the select route) shared
+    memory is the ring alone."""
     p = tstk.score_plan(M, K, V, G, k)
     nt = tstk.SCORE_NTILE
     assert p.bm == min((b for b in tstk.SCORE_ROW_TILES if b >= M), default=32)
@@ -129,7 +132,7 @@ def test_score_plan_covers_every_column_once(M, K, V, G, k):
     ring = tq4.W4_STAGES * (p.bm * (4 * tq4.W4_STAGE_ROWS + 16) + p.bm * 4 + nt * 4
                             + tq4.W4_STAGE_ROWS * (nt + 8) * 4)
     merge = tstk.SCORE_WARPS * T * (20 if k > tstk.SMALL_K else 8)
-    assert p.smem == max(ring, p.bm * (nt + 8) * 4, merge)
+    assert p.smem == (ring if k > tstk.MAX_K else max(ring, p.bm * (nt + 8) * 4, merge))
     assert p.smem <= tq4.W4_SMEM_MAX
     group = K // G
     assert p.vec == (K % 16 == 0 and group % 16 == 0 and V % 4 == 0)
@@ -139,7 +142,7 @@ def test_score_plan_covers_every_column_once(M, K, V, G, k):
 def test_score_plan_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="rows"):
         tstk.score_plan(0, 4096, 32000, 32, 10)
-    for k in (0, tstk.MAX_K + 1):
+    for k in (0, 32001):
         with pytest.raises(ValueError, match="k="):
             tstk.score_plan(10, 4096, 32000, 32, k)
 
@@ -276,4 +279,78 @@ def test_row_tiles_and_kway_merge_match_jax_kernel(M, k):
     rlp, rids = tstk.score_topk_quant(t(h), tqw, k)      # CPU: the plain version
     assert torch.equal(rids, ids)
     assert len(set(np.round(logits.numpy()[0], 6))) < V // 4     # the ties are there
+
+
+def _select_route(logits, k):
+    """The select route's rule in plain torch: per row the 64-bit keys
+    (value's order key << 32 | ~index), a radix select of the k-th key 8
+    bits a pass from the top (stopping when every key under the prefix is
+    taken), the gather of the keys at or above the prefix, a descending
+    sort, and value - logsumexp."""
+    bits = logits.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)            # -0 as +0
+    okey = torch.where(bits >= 0x80000000, (~bits) & 0xFFFFFFFF, bits | 0x80000000)
+    V = logits.shape[1]
+    idx = (~torch.arange(V, dtype=torch.int64)) & 0xFFFFFFFF
+    out_ids, out_scores = [], []
+    lse = torch.logsumexp(logits, dim=-1)
+    for m in range(logits.shape[0]):
+        row = [(int(okey[m, i]) << 32) | int(idx[i]) for i in range(V)]
+        prefix, pmask, kk = 0, 0, k
+        for shift in range(56, -1, -8):
+            hist = [0] * 256
+            for key in row:
+                if key & pmask == prefix:
+                    hist[(key >> shift) & 255] += 1
+            above, b = 0, 255
+            while above + hist[b] < kk:
+                above += hist[b]
+                b -= 1
+            prefix |= b << shift
+            pmask |= 255 << shift
+            kk -= above
+            if hist[b] == kk:
+                break
+        sel = sorted((key for key in row if key & pmask >= prefix), reverse=True)
+        assert len(sel) == k
+        ids = [(~key) & 0xFFFFFFFF for key in sel]
+        out_ids.append(ids)
+        out_scores.append(logits[m, ids] - lse[m])
+    return torch.stack(out_scores), torch.tensor(out_ids)
+
+
+@pytest.mark.parametrize("kind", ["w4", "w8"])
+@pytest.mark.parametrize("k", [129, 256, 700])
+def test_select_route_matches_jax_kernel(kind, k):
+    """k past one column tile: the select route's rule gives the JAX
+    package's ids (identical) and scores (TOL), on logits with heavy exact
+    ties (within and across tiles), up to k = V: the interpreted JAX kernel
+    at k = 129, its unfused chain (the interpreted kernel runs k passes a
+    block) past it; the wrapper on the CPU (the plain version) agrees."""
+    rng = np.random.default_rng(k)
+    K, V, M = 64, 700, 3
+    w = rng.integers(-1, 2, size=(K, V)).astype(np.float32)
+    w[::32] = 7.0
+    w *= 2.0 ** -4
+    h = rng.integers(-127, 128, size=(M, K)).astype(np.float32)
+    h[:, 0] = 127.0
+    h[1] = 127.0
+    h *= 2.0 ** -6
+    jqw, tqw = _heads(w, kind)
+    dense = tq4.qdense4_ref if kind == "w4" else tq.qdense
+    logits = dense(t(h), tqw).to(torch.float32)
+    lp, ids = _select_route(logits, k)
+    if k == 129:
+        klp, kids = jstk.score_topk_quant(jnp.asarray(h), jqw, k, interpret=True)
+    else:
+        klp, kids = _jax_unfused(jnp.asarray(h), jqw, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(kids))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(klp), **TOL)
+    rlp, rids = tstk.score_topk_quant(t(h), tqw, k)      # CPU: the plain version
+    assert torch.equal(rids, ids)
+    np.testing.assert_allclose(rlp.numpy(), lp.numpy(), **TOL)
+    assert len(set(np.round(logits.numpy()[1], 6))) < V // 4     # the ties are there
+    p = tstk.score_plan(M, K, V, 2, k)
+    assert tstk.workspace_words(M, V, k, p.grid[1]) == (M * V + 1) // 2 * 2
+    assert tstk.workspace_words(M, 128256, 16384, 1) == M * 128256 + 2 * M * 16384
 

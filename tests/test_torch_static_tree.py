@@ -141,8 +141,9 @@ def test_with_tree_and_siblings():
     assert static.params["lm_head"] is pe.params["lm_head"]
     with pytest.raises(ValueError, match="static"):
         static.with_tree(depth=2)
-    with pytest.raises(NotImplementedError):
-        pe.with_sampling(True)
+    hot = pe.with_sampling(True)
+    assert hot.ecfg.temperature == 1.0 and hot.params["lm_head"] is pe.params["lm_head"]
+    assert hot.with_sampling(False).ecfg.temperature == 0.0
     # a quantized draft is not quantized again by its sibling
     q = port_engine(je, draft_quant="int8")
     sib = q._sibling(total_tokens=7)
@@ -150,11 +151,33 @@ def test_with_tree_and_siblings():
 
 
 def test_sampled_static_drafting_raises():
-    je = make_engine(1)
-    pe = port_engine(je, tree_paths=SMALL)
-    hot = convert.engine_config(je.ecfg).__class__(temperature=0.9)
-    with pytest.raises(NotImplementedError):
-        tdrafter.draft_round_static(pe.dparams, pe.dcfg, pe.static_spec,
-                                    torch.zeros(4, dtype=torch.long), torch.zeros(4, 32),
+    """Sampled static drafting (temperature > 0, acceptance "true_q") on the
+    uniforms the JAX drafter draws from its key: the same tree, the same
+    node_probs (atol 1e-6). Without noise the drafter stays greedy."""
+    je = make_engine(1, tree_paths=SMALL, temperature=0.9, acceptance="true_q")
+    pe = port_engine(je)
+    spec = pe.static_spec
+    rng = np.random.default_rng(3)
+    toks, feats = rng.integers(0, 128, 4), rng.normal(size=(4, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    jr = jax.jit(lambda tk, ft, cache, key: jdrafter.draft_round_static(
+        je.dparams, je.dcfg, je.static_spec, tk, ft, jnp.int32(2), cache, je._lm_head_w,
+        ecfg=je.ecfg, key=key))(jnp.asarray(toks, jnp.int32), jnp.asarray(feats),
+                                je.init_draft_cache(), key)
+    keys = jax.random.split(key, spec.max_depth + 1)
+    shapes = [(1, 128)] + [(len(lv), 128) for d, lv in enumerate(spec.levels)
+                           if d + 1 < spec.max_depth]
+    draws = iter([np.array(jax.random.uniform(k, sh, jnp.float32, 1e-20, 1.0))
+                  for k, sh in zip(keys, shapes)])
+    r = tdrafter.draft_round_static(pe.dparams, pe.dcfg, spec, t(toks), t(feats),
                                     torch.tensor(2), pe.init_draft_cache(), pe._lm_head_w,
-                                    ecfg=hot)
+                                    ecfg=pe.ecfg, noise=lambda shape: t(next(draws)))
+    for name in ("tokens", "parents", "children"):
+        np.testing.assert_array_equal(getattr(r.tree, name).numpy(),
+                                      np.asarray(getattr(jr.tree, name)), err_msg=name)
+    np.testing.assert_allclose(r.tree.node_probs.numpy(), np.asarray(jr.tree.node_probs),
+                               rtol=0, atol=1e-6)
+    greedy = tdrafter.draft_round_static(pe.dparams, pe.dcfg, spec, t(toks), t(feats),
+                                         torch.tensor(2), pe.init_draft_cache(),
+                                         pe._lm_head_w, ecfg=pe.ecfg)
+    assert greedy.tree.node_probs is None

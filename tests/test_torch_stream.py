@@ -59,8 +59,12 @@ def test_generate_stream_eos_and_stats():
         assert n1 - n0 == t1 - t0 and 1 <= t1 - t0 <= a1 + 1
     out, stats = pe.generate(PROMPT, max_new_tokens=20, details=True)
     assert stats["accept_lens"] == [a for *_, a in seen] and len(out) == seen[-1][0]
-    with pytest.raises(NotImplementedError):
-        next(pe.generate_stream(PROMPT, temperature=0.5))
+    # sampled: the stream draws what generate_fused draws for the same seed
+    hot = pe.with_sampling(True)
+    for ids, _ in hot.generate_stream(PROMPT, max_new_tokens=20, seed=4, temperature=0.5):
+        pass
+    np.testing.assert_array_equal(
+        ids, hot.generate_fused(PROMPT, max_new_tokens=20, seed=4, temperature=0.5))
 
 
 @pytest.mark.parametrize("version", [1, 3])
