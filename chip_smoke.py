@@ -17,14 +17,19 @@ Phases (any failure exits non-zero):
      kernel instantiation; the fused scorer with identical ids at M = 1, 10,
      17, 32, and at M = 33, 64 with k = 17, 32, 128, random and tied, w4 and
      w8, and past one column tile at k = 129, 256, 1024 and k = V; tree
-     attention also at head_dim 80, 96 and 256; the nine ablation variants
+     attention also at head_dim 80, 96 and 256, over a batch of 4 rows in one
+     launch (starts 0, 300, 1024, 2000, the full cache and a 2048-row view,
+     each row bit-identical to its own launch) and past head_dim 256 on the
+     wide route (320, 512); the nine ablation variants
      of the w4a8 body bit for bit at M = 5, 32, 61, 512, every block_n of
      the probe's sweeps, groups 4 to 1024 and a ragged N, `i32_storage`
      against B3's kernel alone), and time kernel /
      plain / library call / bound, with the kernel/library ratios (the fused
      scorer: wrapper, kernel alone and the unfused chain the drafter runs
-     without fused scoring, at M = 1, 10, 32 and past them; the ablation
-     variants beside one bf16 torch.mm at M = 32, 61 and 512);
+     without fused scoring, at M = 1, 10, 32 and past them, and at a batch
+     of 4's M = 4 and 40; B3/B4 also at M = 244; tree attention batched
+     beside one SDPA call with a dense batched mask; the ablation variants
+     beside one bf16 torch.mm at M = 32, 61 and 512);
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
      dense target, for an int4 target + int4 draft + fused scoring, for an
@@ -36,7 +41,11 @@ Phases (any failure exits non-zero):
      distributions, so every rule is deterministic) equal the greedy
      vanilla decode under every acceptance rule and tree kind; a round of
      each of these engines waits on no host sync (torch's sync debug mode
-     "error"); the sampled
+     "error"); batched (B = 3 ragged prompts), every row of
+     generate_batch_fused equals its generate_vanilla for the dense, int4,
+     static-tree, kv_buckets and int8-KV engines, with forced replay and
+     EOS per row, B1 once per layer and round and no B2, and a batched
+     round waits on no host sync; the sampled
      acceptance rules over 200k trials on the card's generator follow the
      target's first- and second-token distributions;
   4. the paths at full width (Llama-3.1-8B widths, EAGLE-3 draft, seeded
@@ -53,7 +62,10 @@ Phases (any failure exits non-zero):
      Sampled requests (temperature 0.7, top_p 0.9, 64 new tokens): the bf16
      path under "true_q" (its dynamic tree takes the q(x) = 1 rule), the
      static path under "true_q" (sampled candidates), the int4 path under
-     "true_q_dynamic". Every path starts with the launch
+     "true_q_dynamic". Batched (B = 4, prompts of 24, 311, 977 and 150
+     tokens, 128 new tokens each, generate_batch_fused) on the bf16 and
+     int4 paths: aggregate tok/s, round time, launches per round (B1 = the
+     layer count) and peak memory. Every path starts with the launch
      counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}; the run's own wall time goes to stderr.
@@ -85,7 +97,8 @@ from eagle_tpu_torch.ops import quant as tq
 from eagle_tpu_torch.ops import quant4 as tq4
 from eagle_tpu_torch.ops import score_topk as stk
 from eagle_tpu_torch.ops import w4_ablate as wab
-from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window
+from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window, with_length
+from eagle_tpu_torch.ops.masks import prefill_mask
 from eagle_tpu_torch.ops.tree import MC_SIM_7B_63, ancestor_mask, paths_to_parents
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
@@ -324,6 +337,133 @@ def check_tree_attention(dev, flush) -> dict:
             **{f"at_head_dim_{d}": res[T_TREE, d] for d in OTHER_HEAD_DIMS}}
 
 
+def _b1_bound(T, nq, nkv, hd, starts, es=2):
+    """B1's least time for a batch whose rows read `starts` prefix rows:
+    q, out, the tree's K/V and mask once each, each row's prefix K/V once;
+    4 T nq (start + T) hd flop a row."""
+    nbytes = sum(2 * T * nq * hd * es + 2 * nkv * s * hd * es + 2 * T * nkv * hd * es + T * T
+                 for s in starts)
+    flops = sum(4 * T * nq * (s + T) * hd for s in starts)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes, flops
+
+
+def _sdpa_batched(args, starts):
+    """One SDPA call over the same keys as B1 for a batch: each row's prefix
+    padded to the longest and masked, then its tree keys under the tree mask."""
+    q, kc, vc, kt, vt, tm = args
+    B, T = q.shape[:2]
+    dev = q.device
+    smax = max(starts)
+    kcat = torch.cat([kc[:, :, :smax], kt.transpose(1, 2)], dim=2)
+    vcat = torch.cat([vc[:, :, :smax], vt.transpose(1, 2)], dim=2)
+    pre = torch.arange(smax, device=dev)[None, None] < torch.tensor(starts, device=dev)[:, None, None]
+    mask = torch.cat([pre.expand(B, T, smax), tm], dim=2)[:, None]
+    qs = q.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kcat, vcat, attn_mask=mask, enable_gqa=True)
+
+
+def check_tree_attention_batched(dev, flush) -> dict:
+    """B1 over a batch in one launch (B = 4, starts 0, 300, 1024, 2000: a
+    prefix chunk live for one row is empty for another), on the full cache
+    and on a 2048-row view of it, f32 and bf16, within B1's tolerances of
+    the batched plain version and each row bit-identical to a launch of that
+    row alone; and the head_dim > 256 route (320, 512) at every chunk edge of
+    a view. Timed beside the plain version and one SDPA call with a dense
+    batched mask."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rng = np.random.default_rng(8)
+    B, starts = 4, [0, 300, 1024, 2000]
+
+    def inputs(B, T, hd, dtype):
+        r = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        tm = torch.stack([rand_tree_mask(T, rng, dev) for _ in range(B)]).contiguous()
+        return (r(B, T, NQ, hd), r(B, NKV, S_CACHE, hd), r(B, NKV, S_CACHE, hd),
+                r(B, T, NKV, hd), r(B, T, NKV, hd), tm)
+
+    def held(got, args, st, tol):
+        ref = ak.tree_attention_ref(*args, st)
+        torch.testing.assert_close(got, ref, **tol)
+        used = tol_used(got, ref, tol)
+        if got.dtype == torch.bfloat16:
+            ref32 = ak.tree_attention_ref(*(a.float() if a.is_floating_point() else a
+                                            for a in args), st)
+            torch.testing.assert_close(got.float(), ref32, **BF16_TOL_F32)
+            used = max(used, tol_used(got, ref32, BF16_TOL_F32))
+        return used, max_err(got, ref)
+
+    worst = 0.0
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, kc, vc, kt, vt, tm = inputs(B, T_TREE, HD, dtype)
+        for view in (S_CACHE, 2048):
+            args = (q, kc[:, :, :view], vc[:, :, :view], kt, vt, tm)
+            st = torch.tensor(starts, device=dev)
+            before = ak.LAUNCHES["tree_attention"]
+            got = ak.tree_attention(*args, st)
+            if ak.LAUNCHES["tree_attention"] != before + 1:
+                fail("[B1 batched] a batch of 4 took more than one launch")
+            used, err = held(got, args, st, tol)
+            for b in range(B):
+                if not torch.equal(got[b], ak.tree_attention(*(a[b] for a in args), st[b])):
+                    fail(f"[B1 batched] {dtype} row {b} differs from its own launch")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            log(f"[B1 batched] B={B} starts {starts}, {view}-row view, {dtype}: within {tol}"
+                + (f" and {BF16_TOL_F32} vs plain f32" if dtype == torch.bfloat16 else "")
+                + f", at most {used:.3f} of a limit used; every row == its own launch")
+    torch.cuda.synchronize()
+    if any(int(c.abs().sum()) for c in ak._COUNTERS.values()):
+        fail("[B1 batched] merge counters left non-zero")
+
+    res = {}
+    for hd in (320, 512):
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            q, kc, vc, kt, vt, tm = inputs(2, T_TREE, hd, dtype)
+            used = 0.0
+            ch = ak.TREE_CHUNK
+            for view, pairs in ((1024, [(0, ch - 1), (ch, ch + 1), (1023, 1024)]),
+                                (S_CACHE, [(1500, S_CACHE)])):
+                args = (q, kc[:, :, :view], vc[:, :, :view], kt, vt, tm)
+                for pair in pairs:
+                    st = torch.tensor(pair, device=dev)
+                    got = ak.tree_attention(*args, st)
+                    u, err = held(got, args, st, tol)
+                    used = max(used, u)
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+            log(f"[B1 wide] head_dim {hd} ({ak.tree_plan(T_TREE, NQ, NKV, 1024, hd)}) "
+                f"{dtype}: chunk edges of a 1024-row view and the full cache, B = 2: "
+                f"within {tol}, at most {used:.3f} of a limit used")
+
+    # timing: the batch at one start (1024, the single-sequence shape four
+    # times) and at the mixed starts; the wide route at one row, start 1024
+    for label, B_, sts, hd in (("batch4_start1024", 4, [1024] * 4, HD),
+                               ("batch4_mixed", 4, starts, HD),
+                               ("head_dim_320", 1, [1024], 320),
+                               ("head_dim_512", 1, [1024], 512)):
+        args = inputs(B_, T_TREE, hd, torch.bfloat16)
+        st = torch.tensor(sts, dtype=torch.int32, device=dev)
+        ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
+        plain_ms = device_time_ms(lambda: ak.tree_attention_ref(*args, st), flush=flush)
+        sdpa = _sdpa_batched(args, sts)
+        lib_err = max_err(sdpa().transpose(1, 2).reshape(B_, T_TREE, NQ * hd),
+                          ak.tree_attention_ref(*args, st))
+        library_ms = device_time_ms(sdpa, flush=flush)
+        bound_ms, bound_by, nbytes, flops = _b1_bound(T_TREE, NQ, NKV, hd, sts)
+        log(f"[B1 {label}] bf16 B={B_} T={T_TREE} head_dim={hd} starts {sts}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (dense batched mask) "
+            f"{library_ms:.4f} ms (err vs plain {lib_err:.2e}), kernel/sdpa "
+            f"{ms / library_ms:.3f}, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B, "
+            f"{flops} flop), kernel/bound {ms / bound_ms:.1f}")
+        res[f"at_{label}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, starts=sts,
+                                  library_ratio=ms / library_ms)
+    res["max_abs_err_batched_and_wide"] = worst
+    return res
+
+
 def check_compact_rows(dev, flush) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -556,7 +696,8 @@ def check_w4_matmul(dev, flush) -> list[dict]:
             ("qdense4", "B3", (4096, 128256), "eagle_tpu/ops/quant4.py:343")):
         G = K // 128
         wb = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
-        for M in ((1, 61, 1024) if tag == "B4" else (1, 61)):
+        # M = 244: a batched round's verify of B = 4 rows (B * T)
+        for M in ((1, 61, 244, 1024) if tag == "B4" else (1, 61, 244)):
             x = rows(M, K)
             if tag == "B4":
                 st = stacked[(K, N)]
@@ -579,6 +720,10 @@ def check_w4_matmul(dev, flush) -> list[dict]:
                 f"{ms:.4f} ms, kernel alone {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
                 f"({bound_by}; {nbytes} B); bf16 torch.mm {mm_ms:.4f} ms, kernel/mm "
                 f"{kernel_ms / mm_ms:.3f}; {plan}")
+            if M == 244:
+                out[-1]["at_M244_batch4"] = dict(ms=ms, kernel_only_ms=kernel_ms,
+                                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                                 bound_by=bound_by, bf16_mm_ms=mm_ms)
             if M == 61:
                 out.append({"name": name, "route": "cuda",
                             "source": "eagle_tpu_torch/csrc/w4_matmul.cu",
@@ -701,7 +846,10 @@ def check_score_topk(dev, flush) -> dict:
                              kk)
 
     res = {}
-    for kind, M, k in (("w8", 10, 10), ("w4", 1, 10), ("w4", 10, 10), ("w4", 32, 16),
+    # M = 4 and 40: a batched round's root and beam stages at B = 4 (B and
+    # B * top_k rows)
+    for kind, M, k in (("w8", 10, 10), ("w4", 1, 10), ("w4", 10, 10), ("w4", 4, 10),
+                       ("w4", 40, 10), ("w4", 32, 16),
                        ("w4", 64, 32), ("w4", 10, 128), ("w4", 10, 129), ("w4", 10, 256),
                        ("w4", 10, 1024)):
         qw = heads[kind]
@@ -745,7 +893,9 @@ def check_score_topk(dev, flush) -> dict:
                             "the drafter's unfused chain (qdense4, cast, log_softmax, "
                             "topk_rows)",
             "shape": f"w4 [10,{K}]x[{K},{V}] k=10 bf16 rows",
-            "at_M1": res[1, 10], "at_M32_k16": res[32, 16], "at_M64_k32": res[64, 32],
+            "at_M1": res[1, 10], "at_M4_batch4_root": res[4, 10],
+            "at_M40_batch4_beam": res[40, 10],
+            "at_M32_k16": res[32, 16], "at_M64_k32": res[64, 32],
             "at_M10_k128": res[10, 128], "at_M10_k129": res[10, 129],
             "at_M10_k256": res[10, 256], "at_M10_k1024": res[10, 1024], "w8": res["w8"]}
 
@@ -859,16 +1009,21 @@ def check_w4_ablate(dev, flush) -> list[dict]:
 def check_round_without_sync(label: str, eng: EagleEngine, prompt) -> None:
     """Two rounds of `eng` after a warm-up one, under torch's sync debug mode
     "error": any op of a round that waits on the host (a device value read
-    there, a copy from pageable host memory) raises."""
-    _, _, st = eng._start(prompt, None, seed=0)
-    kv_limit = eng._kv_limit(len(prompt) + 3 * eng.path_len)
+    there, a copy from pageable host memory) raises. `prompt`: one prompt
+    (its round as generate_fused runs it, on a batch of one), or a list of
+    prompts for a batched round."""
+    batched = isinstance(prompt, list)
+    prompts = prompt if batched else [prompt]
+    _, st = eng._start_batch(prompts, None, seed=0)
+    kv_limit = eng._kv_limit(max(len(p) for p in prompts) + 3 * eng.path_len)
+    step = lambda st: eng._round_rows(st, None, kv_limit, batched=batched)
     with torch.no_grad():
-        st, _ = eng._round(st, kv_limit=kv_limit)       # first use: builds, caches
+        st, _ = step(st)       # first use: builds, caches
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for _ in range(2):
-                st, _ = eng._round(st, kv_limit=kv_limit)
+                st, _ = step(st)
         except RuntimeError as e:
             fail(f"{label}: a round waits on the host: {e}")
         finally:
@@ -1026,6 +1181,175 @@ def check_exactness(dev) -> None:
         f"generate == generate_fused == vanilla; launches {_nonzero(ak.LAUNCHES)}")
 
 
+# fault C6 (ROADMAP.md C): the rows of check_batched_exactness whose
+# one-sequence int4 speculative decode leaves its vanilla decode on the
+# card, as (prompt length, first differing new token)
+C6_ROWS = {(40, 34), (130, 24)}
+
+
+def _b1_step_attention(q, k_cache, v_cache, mask, ks=None, vs=None):
+    """transformer.attention for a vanilla step (T = 1, the step's own K/V
+    row already in the cache at `start`) through B1: the rows < start as
+    the prefix, the step's row as a one-node tree."""
+    B, T, nq, d = q.shape
+    if T != 1 or ks is not None:
+        raise ValueError("_b1_step_attention takes one float-cache step")
+    start = mask[:, 0].sum(-1) - 1
+    rows = start.view(B, 1, 1, 1).expand(B, k_cache.shape[1], 1, d)
+    kt = k_cache.gather(2, rows).transpose(1, 2).contiguous()
+    vt = v_cache.gather(2, rows).transpose(1, 2).contiguous()
+    one = torch.ones((B, 1, 1), dtype=torch.bool, device=q.device)
+    return ak.tree_attention(q.contiguous(), k_cache, v_cache, kt, vt, one, start)
+
+
+def c6_witness(eng, prompt, k: int, van_token: int, spec_token: int) -> None:
+    """Fault C6 at its first differing new token k: the step at position p
+    that predicts it (input: the token both decodes agree on), on the
+    vanilla decode's cache (the plain attention, as generate_vanilla runs
+    it, and B1's f32 kernel at T = 1, the kernel a verify attends with) and
+    on the speculative decode's cache (rows < p written by its verify
+    rounds, the same tokens). Logs each step's token and how far its logits
+    move, and where the two caches' rows < p differ."""
+    with torch.no_grad():
+        _, _, van, token, req = eng._vanilla_prefill(prompt, None, 0)
+        for _ in range(k - 1):
+            van, token = eng._vanilla_step(van, token, None, *req)
+        p = int(van.length[0])
+        _, _, st = eng._start(prompt, None)
+        while int(st.length) < p:
+            st, _ = eng._round(st)
+        spec = with_length(st.cache, van.length)
+        gap = ((spec.k - van.k).abs().amax((1, 2, 4))[:, :p].amax(-1)
+               / van.k.abs().amax((1, 2, 3, 4)))             # [L] relative, rows < p
+        picks = []
+        for label, cache, attn in (("vanilla cache", van, transformer.attention),
+                                   ("vanilla cache, B1 at T = 1", van, _b1_step_attention),
+                                   ("speculative decode's cache", spec, transformer.attention)):
+            plain, transformer.attention = transformer.attention, attn
+            try:
+                res = transformer.forward(eng.params, eng.cfg, token.reshape(1, 1), cache,
+                                          van.length.reshape(1, 1),
+                                          prefill_mask(1, cache.max_len, van.length))
+            finally:
+                transformer.attention = plain
+            picks.append((label, transformer.lm_head(eng.params, eng.cfg, res.hidden[0, 0])))
+    base = picks[0][1]
+    top = torch.topk(base, 2)
+    steps = "; ".join(f"{label}: {int(lg.argmax())} (logits within "
+                      f"{float((lg - base).abs().max()):.3e})" for label, lg in picks[1:])
+    log(f"[C6 witness] prompt {len(prompt)}, new token {k} (position {p}): vanilla decode "
+        f"{van_token}, speculative decode {spec_token}; the step on the vanilla cache picks "
+        f"{int(top.indices[0])} (runner-up {int(top.indices[1])}, "
+        f"{float(top.values[0] - top.values[1]):.3e} below); {steps}; the caches' K rows < p "
+        f"differ per layer by at most {[f'{float(x):.2e}' for x in gap]} of the layer's "
+        f"largest |K|")
+
+
+def check_batched_exactness(dev) -> None:
+    """fp32, batched: every row of generate_batch_fused (B = 3 ragged prompts,
+    one bucket of 256 prompt rows) equals, token for token, its own
+    one-sequence generate_fused and its generate_vanilla, for the dense
+    target, an int4 target + int4 draft + fused scoring, a static tree,
+    kv_buckets across a bucket edge and an int8 KV cache; forced replay and
+    EOS per row on the dense target; generate_batch too. The one exception
+    is fault C6 of ROADMAP.md: on the int4 engine the rows named in C6_ROWS
+    may leave their vanilla decode at the named new token, and only as
+    their one-sequence generate_fused leaves it (batching adds nothing);
+    `c6_witness` then shows the mechanism at that token. A batch runs B1
+    once per layer and round, and never B2; a batched round of each engine
+    waits on no host sync."""
+    cfg, dcfg = fp32_configs()
+    ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=512,
+                        compact_impl="pallas")
+    params = transformer.init_params(cfg, seed=10, device=dev)
+    dparams = draft_mod.init_params(dcfg, seed=11, device=dev)
+    base = EagleEngine(params, cfg, dparams, dcfg, ecfg, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 130)]
+    long_prompt = rng.integers(0, cfg.vocab_size, 400)
+    L, new = cfg.num_layers, 64
+    int4 = EagleEngine(tq4.quantize_target_params4(params), cfg, dparams, dcfg,
+                       dataclasses.replace(ecfg, draft_quant="int4", fuse_scoring=True),
+                       device=dev)
+    cases = (("dense", base, prompts, ("tree_attention",)),
+             ("int4 target, int4 draft, fused scoring", int4, prompts,
+              ("tree_attention", "qdense4", "qdense4_stacked", "score_topk_quant")),
+             ("static tree mc_sim_7b_63", base._sibling(tree_paths=MC_SIM_7B_63), prompts,
+              ("tree_attention",)),
+             # the 400-token row leaves the 512-row bucket while decoding
+             ("kv_buckets (256, 512)", base._sibling(kv_buckets=(256, 512)),
+              [prompts[1], long_prompt, prompts[0]], ("tree_attention",)),
+             ("int8 KV cache", base._sibling(kv_quant="int8"), prompts, ()))
+    for label, eng, ps, must_launch in cases:
+        bucketed = eng.ecfg.kv_buckets is not None
+        van = [eng.generate_vanilla(p, max_new_tokens=new, fused=bucketed) for p in ps]
+        used = set()
+        limit_of = eng._kv_limit
+        eng._kv_limit = lambda n, f=limit_of: used.add(f(n)) or f(n)
+        ak.reset_launch_counts()
+        outs, committed, rounds = eng.generate_batch_fused(ps, max_new_tokens=new, log=True)
+        launches = dict(ak.LAUNCHES)
+        c6 = []
+        for i, (o, v) in enumerate(zip(outs, van)):
+            if len(o) == len(v) and np.array_equal(o, v):
+                continue
+            row = (len(ps[i]), int(np.argmax(o != v)) - len(ps[i]))
+            one = eng.generate_fused(ps[i], max_new_tokens=new)
+            if (eng is not int4 or row not in C6_ROWS or not np.array_equal(o, one)
+                    or len(o) != len(v)):
+                fail(f"fp32 batched {label}: row {i} (prompt {len(ps[i])}) leaves its "
+                     f"generate_vanilla at new token {row[1]}"
+                     + ("" if np.array_equal(o, one) else
+                        ", and its one-sequence generate_fused"))
+            c6.append(row)
+            c6_witness(eng, ps[i], row[1], int(v[sum(row)]), int(o[sum(row)]))
+        if c6:
+            log(f"[exact batched] {label}: fault C6 at (prompt, first differing new token) "
+                f"{c6}, as the one-sequence generate_fused leaves its vanilla decode")
+        idle = [k for k in must_launch if launches[k] == 0]
+        want_b1 = L * rounds if "tree_attention" in must_launch else 0
+        if idle or launches["compact_rows"] or launches["tree_attention"] != want_b1:
+            fail(f"fp32 batched {label}: launches {_nonzero(launches)} for {rounds} rounds "
+                 f"(B1 must launch {L} times a round for the whole batch, B2 never)")
+        # one bucket for the batch, from its longest row (400 prompt tokens:
+        # 512, then the full cache)
+        if bucketed and used != {512, eng._tgt_len()}:
+            fail(f"fp32 batched {label}: buckets used {sorted(used)}; no edge crossed")
+        check_round_without_sync(f"fp32 batched {label}", eng, ps)
+        log(f"[exact batched] {label}, prompts {[len(p) for p in ps]}: every row of "
+            f"generate_batch_fused == its vanilla"
+            + (" or, where not, its generate_fused" if c6 else "")
+            + f" ({rounds} rounds, committed {committed}); "
+            f"launches {_nonzero(launches)}"
+            + (f", buckets {sorted(used)}" if bucketed else "")
+            + "; a batched round waits on no host sync")
+
+    van = [base.generate_vanilla(p, max_new_tokens=new + base.path_len + 1) for p in prompts]
+    outs = base.generate_batch(prompts, max_new_tokens=new)
+    if any(not np.array_equal(o, v[: len(p) + new]) for o, v, p in zip(outs, van, prompts)):
+        fail("fp32 generate_batch: a row differs from its generate_vanilla")
+    refs = [v.copy() for v in van]
+    flip = len(prompts[1]) + 7
+    refs[1][flip] = (refs[1][flip] + 1) % cfg.vocab_size
+    outs, committed, rounds = base.generate_batch_fused(prompts, max_new_tokens=new,
+                                                        force_tokens=refs, log=True)
+    if any(not np.array_equal(o, r[: len(o)]) or len(o) != len(p) + new
+           for o, r, p in zip(outs, refs, prompts)):
+        fail("fp32 batched forced replay: a row left its reference")
+    eos = int(van[0][len(prompts[0]) + 10])
+    eng = base._sibling()
+    eng.eos_token_id = eos
+    for name, outs in (("generate_batch_fused", eng.generate_batch_fused(prompts, max_new_tokens=new)),
+                       ("generate_batch", eng.generate_batch(prompts, max_new_tokens=new))):
+        for o, p in zip(outs, prompts):
+            if not np.array_equal(o, base.generate_vanilla(p, max_new_tokens=new,
+                                                           eos_token_id=eos)):
+                fail(f"fp32 batched EOS per row: {name} row of prompt {len(p)} differs")
+    log(f"[exact batched] dense: generate_batch rows == vanilla; forced replay walks each "
+        f"row's reference (a flipped token in row 1); EOS {eos} per row (generate_batch and "
+        f"generate_batch_fused) == vanilla with that EOS")
+
+
 def check_sampled_exactness(dev) -> None:
     """Sampled engines at sampling_top_k = 1 (temperature 0.8): the processed
     distributions are one-hot, so every acceptance rule and every draw is
@@ -1064,7 +1388,7 @@ def check_sampled_exactness(dev) -> None:
     for label, tag, kw, must_launch in cases:
         e = dataclasses.replace(greedy, **hot, **kw)
         eng = EagleEngine(params4 if tag == "int4" else params, cfg, dparams, dcfg, e)
-        if eng.device.type != "cuda" or eng._request(None, 0)[1].device.type != "cuda":
+        if eng.device.type != "cuda" or eng._requests(None, 0, 1)[1][0].device.type != "cuda":
             fail(f"sampled {label}: the engine or its generator is not on the card")
         ak.reset_launch_counts()
         for i, prompt in enumerate(prompts):
@@ -1182,14 +1506,16 @@ def check_sampled_mc(dev) -> None:
 # phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def expected_launches(eng, requests: int, rounds: int) -> dict:
+def expected_launches(eng, requests: int, rounds: int, batched: bool = False) -> dict:
     """Launch counts of a speculative run, from its own numbers: `requests`
     prefills (one target forward and one draft round each) and `rounds`
-    rounds (one verify forward and one draft round each)."""
+    rounds (one verify forward and one draft round each). A batch is one
+    request: its prefill, verify and draft rounds launch once for all rows,
+    and it runs no compaction kernel."""
     L, depth = eng.cfg.num_layers, eng.ecfg.depth
     exp = {k: 0 for k in ak.LAUNCHES}
     exp["tree_attention"] = L * rounds
-    exp["compact_rows"] = rounds
+    exp["compact_rows"] = 0 if batched else rounds
     if "stacked4" in eng.params:
         forwards, draft_rounds = requests + rounds, requests + rounds
         exp["qdense4_stacked"] = len(eng.params["stacked4"]) * L * forwards
@@ -1349,6 +1675,61 @@ def _attn_launches(eng, rounds: int) -> dict:
     return exp
 
 
+BATCH_PROMPTS = (24, 311, 977, 150)
+
+
+def batched_path(dev, label: str, eng: EagleEngine, card: str) -> dict:
+    """B = 4 requests (prompts of BATCH_PROMPTS tokens, 128 new tokens each)
+    through generate_batch_fused on a full-width engine: every row's tokens
+    in range, launch counts against the run's own numbers (B1 once per layer
+    and round for the whole batch, B2 never), aggregate tok/s, round time
+    (host clock with sync, median of 10 batched rounds at the same
+    context), launches per round and peak memory, beside `card`."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n) for n in BATCH_PROMPTS]
+    new, L = 128, eng.cfg.num_layers
+    eng.generate_batch_fused([p[:8] for p in prompts], max_new_tokens=8)   # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ak.reset_launch_counts()
+    t0 = time.time()
+    outs, committed, rounds = eng.generate_batch_fused(prompts, max_new_tokens=new, log=True)
+    torch.cuda.synchronize()
+    batch_s = time.time() - t0
+    launches = dict(ak.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for p, out in zip(prompts, outs):
+        if len(out) != len(p) + new or not np.array_equal(out[: len(p)], p) \
+                or out.min() < 0 or out.max() >= eng.cfg.vocab_size:
+            fail(f"[{label} batched] a row of {len(p)} tokens returned {len(out)} tokens")
+    exp = expected_launches(eng, 1, rounds, batched=True)
+    if launches != exp or launches["tree_attention"] != L * rounds:
+        fail(f"[{label} batched] launches {_nonzero(launches)}, expected {_nonzero(exp)} "
+             f"for {rounds} rounds (B1 {L} a round)")
+    _, st = eng._start_batch(prompts, None)
+    round_ms = []
+    with torch.no_grad():
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st, _ = eng._round(st)
+            torch.cuda.synchronize()
+            if i >= 3:
+                round_ms.append((time.time() - t0) * 1e3)
+    stats = {
+        "card": card, "path": f"{label}, batched B = {len(prompts)}",
+        "prompt_lens": list(BATCH_PROMPTS), "new_tokens_each": new,
+        "aggregate_tokens_per_s": len(prompts) * new / batch_s,
+        "wall_s": batch_s, "rounds": rounds,
+        "committed_per_row": committed, "tau_per_row": [c / rounds for c in committed],
+        "round_ms_median_of_10": float(np.median(round_ms)),
+        "launches_per_round": {k: v / rounds for k, v in _nonzero(launches).items()},
+        "peak_GiB_allocated": peak, "weights": "random (seeded), lm_head x8"}
+    log(f"[{label} batched] {json.dumps(stats)}")
+    return launches
+
+
 def static_path(dev, base: EagleEngine) -> dict:
     """This slice's path at full width: the static-tree + kv_buckets engine
     over the bf16 engine's weights answers one request through
@@ -1498,32 +1879,50 @@ def main() -> None:
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    phase_s = {"1: build": round(time.time() - t0, 1)}
+
+    def timed(name, fn, *args, **kw):
+        t = time.time()
+        out = fn(*args, **kw)
+        phase_s[name] = round(phase_s.get(name, 0.0) + time.time() - t, 1)
+        return out
+
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
-    kernels = [check_tree_attention(dev, flush), check_compact_rows(dev, flush),
-               *check_w4_matmul(dev, flush), check_score_topk(dev, flush),
-               *check_w4_ablate(dev, flush)]
+    kernels = [timed("2: B1", check_tree_attention, dev, flush),
+               timed("2: B2", check_compact_rows, dev, flush),
+               *timed("2: B3/B4", check_w4_matmul, dev, flush),
+               timed("2: B5", check_score_topk, dev, flush),
+               *timed("2: B6", check_w4_ablate, dev, flush)]
+    kernels[0].update(timed("2: B1 batched and wide", check_tree_attention_batched, dev, flush))
     del flush
     torch.cuda.empty_cache()
-    check_exactness(dev)
-    check_sampled_exactness(dev)
-    check_sampled_mc(dev)
-    bf16_launches, _, eng = main_path(dev, "bf16", full_width.engine, (24,))
-    sampled = {"bf16": sampled_path(dev, "sampled bf16", eng, "true_q", card, repeat=True)}
-    static_launches = static_path(dev, eng)
-    sampled["static"] = sampled_path(dev, "sampled static",
-                                     full_width.engine_static(dev, base=eng), "true_q", card)
-    kv8_path(dev, eng)
-    calibrate_path(dev, eng)
+    timed("3: exact", check_exactness, dev)
+    timed("3: exact batched", check_batched_exactness, dev)
+    timed("3: exact sampled", check_sampled_exactness, dev)
+    timed("3: sampled rules", check_sampled_mc, dev)
+    bf16_launches, _, eng = timed("4: bf16", main_path, dev, "bf16", full_width.engine, (24,))
+    sampled = {"bf16": timed("4: sampled bf16", sampled_path, dev, "sampled bf16", eng,
+                             "true_q", card, repeat=True)}
+    batched = {"bf16": timed("4: batched bf16", batched_path, dev, "bf16", eng, card)}
+    static_launches = timed("4: static", static_path, dev, eng)
+    sampled["static"] = timed("4: sampled static", sampled_path, dev, "sampled static",
+                              full_width.engine_static(dev, base=eng), "true_q", card)
+    timed("4: kv8", kv8_path, dev, eng)
+    timed("4: calibrate", calibrate_path, dev, eng)
     del eng
     torch.cuda.empty_cache()
-    launches, _, eng = main_path(dev, "int4", full_width.engine_int4, (24, 977))
-    sampled["int4"] = sampled_path(dev, "sampled int4", eng, "true_q_dynamic", card)
+    launches, _, eng = timed("4: int4", main_path, dev, "int4", full_width.engine_int4,
+                             (24, 977))
+    sampled["int4"] = timed("4: sampled int4", sampled_path, dev, "sampled int4", eng,
+                            "true_q_dynamic", card)
+    batched["int4"] = timed("4: batched int4", batched_path, dev, "int4", eng, card)
     del eng
     torch.cuda.empty_cache()
-    hd64_launches, _, eng = main_path(dev, "hd64", full_width.engine_hd64, (24, 977))
+    hd64_launches, _, eng = timed("4: hd64", main_path, dev, "hd64", full_width.engine_hd64,
+                                  (24, 977))
     del eng
     torch.cuda.empty_cache()
-    probe_launches = probe_path()
+    probe_launches = timed("4: probe", probe_path)
     for k in kernels:
         # the int4 serving path runs B1-B5; the bf16, static-tree and hd64
         # paths B1 and B2; the probe's path every variant of B6
@@ -1537,6 +1936,8 @@ def main() -> None:
             k["launches_hd64_path"] = hd64_launches[k["name"]]
             for path, counts in sampled.items():
                 k[f"launches_sampled_{path}_path"] = counts[k["name"]]
+            for path, counts in batched.items():
+                k[f"launches_batched_{path}_path"] = counts[k["name"]]
         if k["launches"] == 0:
             fail(f"{k['name']} was never launched on its path")
     for name in ("tree_attention", "compact_rows"):
@@ -1547,6 +1948,10 @@ def main() -> None:
     idle = [k for k in ENGINE_KERNELS if sampled["int4"][k] == 0]
     if idle:
         fail(f"the sampled int4 path never launched {idle}")
+    idle = [k for k in ENGINE_KERNELS if k != "compact_rows" and batched["int4"][k] == 0]
+    if idle or batched["bf16"]["tree_attention"] == 0:
+        fail(f"the batched paths never launched {idle or ['tree_attention']}")
+    log(f"[smoke] seconds a phase (host clock): {json.dumps(phase_s)}")
     log(f"[smoke] whole run, kernels' build included: {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

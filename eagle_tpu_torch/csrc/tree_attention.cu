@@ -1,14 +1,19 @@
-// Tree-verify attention for one sequence, hand-written for Hopper (sm_90a).
+// Tree-verify attention over a batch of sequences, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces: eagle_tpu/ops/pallas_attn.py:_tree_attn_kernel (wrapper
 // tree_attention), the Pallas TPU kernel that the JAX engine runs for every
-// layer's verify attention when ModelConfig.attn_impl == "pallas_tree".
+// layer's verify attention when ModelConfig.attn_impl == "pallas_tree", and
+// which its batched rounds vmap over the batch.
 //
-// Computes what pallas_attn.tree_attention_xla computes:
+// Computes what pallas_attn.tree_attention_xla computes, for each batch row:
 //   q [T, nq, d] attends to the committed prefix k/v_cache [n_kv, S, d]
 //   (rows < start) and to the tree's fresh k/v_tree [Tk, n_kv, d] under the
 //   [T, Tk] ancestor mask; out [T, nq*d]. Scores in f32 with scale d^-0.5,
 //   masked entries at -1e30, softmax in f32, out = acc / max(l, 1e-30).
+//   A launch takes B rows, each with its own start (an int32 [B] on the
+//   device): the batch is one more grid axis, so a batched round launches
+//   once per layer whatever B is.
 //
 // What bounds it on the H100: at the main path's shapes (T = Tk = 61, nq = 32,
 // n_kv = 8, d = 128) one launch reads the prefix K/V once, 4 KiB per row and
@@ -57,11 +62,14 @@
 //    the columns in slices of 64. Shared memory: (64 + 4 * 32) rows of 264
 //    bf16 = 99 KiB.
 //
-// f32 (the exactness checks), `tree_attn_kernel`: the first version's FP32
-// FMA body (TF32 tensor cores would not hold an f32 tolerance of 1e-5): one
-// block per (kv head, 16 query rows) walks the prefix to `start`, then the
-// tree's keys, with products from shared memory (dynamic: 83.5 KiB at
-// HD = 256).
+// f32 (the exactness checks, and every head_dim > 256), `tree_attn_kernel`:
+// the first version's FP32 FMA body (TF32 tensor cores would not hold an f32
+// tolerance of 1e-5): one block per (kv head, 16 query rows) walks the prefix
+// to `start`, then the tree's keys, with products from shared memory
+// (dynamic: 83.5 KiB at HD = 256). Past 256 columns (either stored type, run
+// at HD = 256) Q.K is summed over the head in passes of 256 columns and a
+// block keeps one 256-column slice of the output (grid.z = the slice), so
+// registers and shared memory do not grow with d.
 
 #include "ptx.cuh"
 
@@ -122,6 +130,15 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
     const uint8_t* __restrict__ mask, const int* __restrict__ start_ptr,
     T* __restrict__ out, int Tq, int Tk, int nq, int nkv, int S_rows, int S, int d,
     float scale) {
+  // batch row b, kv head h; move every pointer to row b
+  const int b = blockIdx.x / nkv, h = blockIdx.x % nkv;
+  q += (size_t)b * Tq * nq * d;
+  out += (size_t)b * Tq * nq * d;
+  kc += (size_t)b * nkv * S * d;
+  vc += (size_t)b * nkv * S * d;
+  kt += (size_t)b * Tk * nkv * d;
+  vt += (size_t)b * Tk * nkv * d;
+  mask += (size_t)b * Tq * Tk;
   constexpr int DP = D + 4;          // padded f32 row: 16B-aligned, conflict-free
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CH = D / VEC;        // 16-byte chunks per row
@@ -139,21 +156,26 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.x;
   const int g = nq / nkv;
   const int rows = Tq * g;
   const int r0 = blockIdx.y * R;
-  int start = *start_ptr;
+  const int c0 = blockIdx.z * D;     // this block's output columns: c0 .. c0 + D
+  const bool q_kept = d <= D;        // one pass covers the head: Q loads once
+  int start = start_ptr[b];
   start = start < 0 ? 0 : (start > S_rows ? S_rows : start);
 
-  // Q tile: block row r is global row r0 + r = (t, j) → q head h*g + j
-  for (int e = tid; e < R * CH; e += NT) {
-    const int r = e / CH, c = (e % CH) * VEC;
-    const int gr = r0 + r;
-    const T* src = nullptr;
-    if (gr < rows) src = q + ((size_t)(gr / g) * nq + h * g + gr % g) * d;
-    load_chunk<T>(Qs + r * DP + c, src, c, d, vec);
-  }
+  // Q tile, columns cp .. cp + D: block row r is global row r0 + r = (t, j)
+  // -> q head h*g + j
+  auto load_q = [&](int cp) {
+    for (int e = tid; e < R * CH; e += NT) {
+      const int r = e / CH, c = (e % CH) * VEC;
+      const int gr = r0 + r;
+      const T* src = nullptr;
+      if (gr < rows) src = q + ((size_t)(gr / g) * nq + h * g + gr % g) * d;
+      load_chunk<T>(Qs + r * DP + c, src, cp + c, d, vec);
+    }
+  };
+  if (q_kept) load_q(0);
   if (tid < R) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
 
   // PV-phase ownership: row pr, float4 column chunks pc + 32*i
@@ -167,35 +189,39 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
   for (int phase = 0; phase < 2; ++phase) {
     const int nkeys = phase == 0 ? start : Tk;
     for (int kb = 0; kb < nkeys; kb += BK) {
-      __syncthreads();  // previous tile fully consumed (and Q / m / l ready)
-      for (int e = tid; e < BK * CH; e += NT) {
-        const int r = e / CH, c = (e % CH) * VEC;
-        const int key = kb + r;
-        const T* ks = nullptr;
-        const T* vs = nullptr;
-        if (key < nkeys) {
-          const size_t off = phase == 0 ? ((size_t)h * S + key) * d
-                                        : ((size_t)key * nkv + h) * d;
-          ks = (phase == 0 ? kc : kt) + off;
-          vs = (phase == 0 ? vc : vt) + off;
-        }
-        load_chunk<T>(Ks + r * DP + c, ks, c, d, vec);
-        load_chunk<T>(Vs + r * DP + c, vs, c, d, vec);
-      }
-      __syncthreads();
-
-      // scores: warp w owns rows 4w..4w+3, lane owns key kb + lane
+      // scores: warp w owns rows 4w..4w+3, lane owns key kb + lane; summed
+      // over the head in passes of D columns, the first of which also loads
+      // the block's V columns
       float s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int cp = 0; cp < d; cp += D) {
+        __syncthreads();  // previous tile / pass fully consumed (and Q / m / l ready)
+        if (!q_kept) load_q(cp);
+        for (int e = tid; e < BK * CH; e += NT) {
+          const int r = e / CH, c = (e % CH) * VEC;
+          const int key = kb + r;
+          const T* ks = nullptr;
+          const T* vs = nullptr;
+          if (key < nkeys) {
+            const size_t off = phase == 0 ? ((size_t)h * S + key) * d
+                                          : ((size_t)key * nkv + h) * d;
+            ks = (phase == 0 ? kc : kt) + off;
+            vs = (phase == 0 ? vc : vt) + off;
+          }
+          load_chunk<T>(Ks + r * DP + c, ks, cp + c, d, vec);
+          if (cp == 0) load_chunk<T>(Vs + r * DP + c, vs, c0 + c, d, vec);
+        }
+        __syncthreads();
 #pragma unroll 8
-      for (int c = 0; c < D; c += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + lane * DP + c);
+        for (int c = 0; c < D; c += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(Ks + lane * DP + c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(Qs + (warp * 4 + i) * DP + c);
-          s[i] = fmaf(qv.x, kv.x, s[i]);
-          s[i] = fmaf(qv.y, kv.y, s[i]);
-          s[i] = fmaf(qv.z, kv.z, s[i]);
-          s[i] = fmaf(qv.w, kv.w, s[i]);
+          for (int i = 0; i < 4; ++i) {
+            const float4 qv = *reinterpret_cast<const float4*>(Qs + (warp * 4 + i) * DP + c);
+            s[i] = fmaf(qv.x, kv.x, s[i]);
+            s[i] = fmaf(qv.y, kv.y, s[i]);
+            s[i] = fmaf(qv.z, kv.z, s[i]);
+            s[i] = fmaf(qv.w, kv.w, s[i]);
+          }
         }
       }
       const int key = kb + lane;
@@ -250,7 +276,7 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
     T* o = out + (size_t)(gr / g) * nq * d + (size_t)(h * g + gr % g) * d;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      const int c = pc + 32 * i;
+      const int c = c0 + pc + 32 * i;
       const float v[4] = {acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
@@ -262,8 +288,8 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
 template <typename T, int D>
 int launch(const void* q, const void* kc, const void* vc, const void* kt,
            const void* vt, const void* mask, const void* start, void* out,
-           int Tq, int Tk, int nq, int nkv, int S_rows, int S, int d, float scale,
-           cudaStream_t stream) {
+           int B, int Tq, int Tk, int nq, int nkv, int S_rows, int S, int d, int slices,
+           float scale, cudaStream_t stream) {
   static bool smem_attr = false;
   if (!smem_attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -272,7 +298,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* kt,
     smem_attr = true;
   }
   const int rows = Tq * (nq / nkv);
-  dim3 grid(nkv, (rows + R - 1) / R);
+  const dim3 grid(B * nkv, (rows + R - 1) / R, slices);
   tree_attn_kernel<T, D><<<grid, NT, f32_smem<D>(), stream>>>(
       (const T*)q, (const T*)kc, (const T*)vc, (const T*)kt, (const T*)vt,
       (const uint8_t*)mask, (const int*)start, (T*)out, Tq, Tk, nq, nkv, S_rows, S, d,
@@ -353,10 +379,19 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int rt = blockIdx.x, c = blockIdx.y, h = blockIdx.z;
+  // blockIdx.z = b * nkv + h: batch row b, kv head h; every pointer moves to row b
+  const int rt = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / nkv, h = bh % nkv;
   const int n_rt = gridDim.x, n_chunks = gridDim.y - 1;
   const int g = nq / nkv, rows = Tq * g, r0 = rt * BR;
-  int start = *start_ptr;
+  q += (size_t)b * Tq * nq * d;
+  out += (size_t)b * Tq * nq * d;
+  kc += (size_t)b * nkv * head_stride * d;
+  vc += (size_t)b * nkv * head_stride * d;
+  kt += (size_t)b * Tk * nkv * d;
+  vt += (size_t)b * Tk * nkv * d;
+  mask += (size_t)b * Tq * Tk;
+  int start = start_ptr[b];
   start = start < 0 ? 0 : (start > S_rows ? S_rows : start);
   const int n_act = (start + CHUNK - 1) / CHUNK;       // prefix chunks with keys
   const bool tree = c == n_chunks;
@@ -507,7 +542,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
-  const size_t base = (size_t)(h * n_rt + rt) * (n_chunks + 1);
+  const size_t base = (size_t)(bh * n_rt + rt) * (n_chunks + 1);
   float* pa = part_acc + (base + c) * BR * HD;
   float* pm = part_ml + (base + c) * 2 * BR;
 #pragma unroll
@@ -525,7 +560,7 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* cnt = counters + h * n_rt + rt;
+    int* cnt = counters + bh * n_rt + rt;
     is_last = atomicAdd(cnt, 1) == n_act;     // n_act prefix blocks + the tree block
     if (is_last) *cnt = 0;                     // ready for the next launch
   }
@@ -586,14 +621,14 @@ __global__ void __launch_bounds__(NT) tree_attn_mma_kernel(
 template <int HD, bool EXACT>
 int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
                const void* vt, const void* mask, const void* start, void* out,
-               void* part_acc, void* part_ml, void* counters, int Tq, int Tk, int nq,
+               void* part_acc, void* part_ml, void* counters, int B, int Tq, int Tk, int nq,
                int nkv, int S_rows, int head_stride, int d, int rows_per_tile, int chunk,
                int row_tiles, int chunks, float scale, cudaStream_t stream) {
   static bool smem_attr = false;
   // the wrapper's plan must be this kernel's geometry, and cover the rows
   const int rows = Tq * (nq / nkv);
   if (rows_per_tile != BR || chunk != CHUNK || row_tiles != (rows + BR - 1) / BR ||
-      chunks != (S_rows + CHUNK - 1) / CHUNK)
+      chunks != (S_rows + CHUNK - 1) / CHUNK || B < 1 || B * nkv > 65535)
     return (int)cudaErrorInvalidValue;
   if (!smem_attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -602,7 +637,7 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
     if (e != cudaSuccess) return (int)e;
     smem_attr = true;
   }
-  const dim3 grid(row_tiles, chunks + 1, nkv);
+  const dim3 grid(row_tiles, chunks + 1, B * nkv);
   tree_attn_mma_kernel<HD, EXACT><<<grid, NT, mma_smem<HD>(), stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc,
       (const __nv_bfloat16*)kt, (const __nv_bfloat16*)vt, (const uint8_t*)mask,
@@ -611,37 +646,48 @@ int launch_mma(const void* q, const void* kc, const void* vc, const void* kt,
   return (int)cudaGetLastError();
 }
 
-// the padded width a head width runs at: 64, 128 or 256 (0: not built)
-int head_pad(int d) { return d < 1 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0; }
+// the padded width a head width runs at: 64, 128 or 256, and 256 past 256,
+// which the f32 body covers in 256-column slices (0: no width)
+int head_pad(int d) { return d < 1 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. d: head_dim, 1 .. 256; the kernels run at
-// the padded width head_pad (64 for d <= 64, 128 for d <= 128, else 256),
-// which the plan gives and the launch checks. S_rows: the cache's (or view's)
-// rows; head_stride: rows between two kv heads of the buffer. bf16 only: the
-// plan of ops/attn_kernels.tree_plan (rows_per_tile = 64 query rows and
-// chunk = 256 prefix keys a block, row_tiles, chunks; refused unless it is
-// this kernel's), part_acc f32 [n_kv, row tiles, chunks + 1, 64, head_pad],
-// part_ml f32 [n_kv, row tiles, chunks + 1, 2, 64], counters int32
-// [n_kv * row tiles], zero on entry and left zero. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// Every launch takes B batch rows: q [B, T, nq, d], k/v_cache rows of
+// [B, n_kv, head_stride, d] (a cache, or a view of its first S_rows rows),
+// k/v_tree [B, Tk, n_kv, d], tree_mask [B, T, Tk], start int32 [B] (each
+// row's prefix length, clamped to [0, S_rows]), out [B, T, nq*d].
+//
+// dtype: 0 = float32, 1 = bfloat16. d: head_dim >= 1; the kernels run at
+// the padded width head_pad (64 for d <= 64, 128 for d <= 128, else 256) in
+// slices = ceil(d / head_pad) column slices (1 up to 256), which the plan
+// gives and the launch checks. Past 256 either dtype runs the f32 body. S_rows:
+// the cache's (or view's) rows; head_stride: rows between two kv heads of
+// the buffer. bf16 up to 256 only: the plan of ops/attn_kernels.tree_plan
+// (rows_per_tile = 64 query rows and chunk = 256 prefix keys a block,
+// row_tiles, chunks; refused unless it is this kernel's), part_acc f32
+// [B, n_kv, row tiles, chunks + 1, 64, head_pad], part_ml f32 [B, n_kv, row
+// tiles, chunks + 1, 2, 64], counters int32 [B * n_kv * row tiles], zero on
+// entry and left zero. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int tree_attention_launch(
     const void* q, const void* k_cache, const void* v_cache, const void* k_tree,
     const void* v_tree, const void* tree_mask, const void* start, void* out,
-    void* part_acc, void* part_ml, void* counters, int dtype, int T, int Tk, int nq,
-    int nkv, int S_rows, int head_stride, int d, int hd_pad, int rows_per_tile, int chunk,
-    int row_tiles, int chunks, float scale, void* stream) {
+    void* part_acc, void* part_ml, void* counters, int dtype, int B, int T, int Tk, int nq,
+    int nkv, int S_rows, int head_stride, int d, int hd_pad, int slices, int rows_per_tile,
+    int chunk, int row_tiles, int chunks, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int hp = head_pad(d);
-  if (hp == 0 || hd_pad != hp || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-#define F32(HD) launch<float, HD>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
-                                  T, Tk, nq, nkv, S_rows, head_stride, d, scale, st)
+  if (hp == 0 || hd_pad != hp || slices != (d + hp - 1) / hp || slices > 65535 ||
+      (dtype != 0 && dtype != 1) || B < 1)
+    return (int)cudaErrorInvalidValue;
+#define F32(T_, HD) launch<T_, HD>(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
+                                   B, T, Tk, nq, nkv, S_rows, head_stride, d, slices, scale, st)
 #define MMA(HD) (d == HD ? launch_mma<HD, true>(MMA_ARGS) : launch_mma<HD, false>(MMA_ARGS))
 #define MMA_ARGS q, k_cache, v_cache, k_tree, v_tree, tree_mask, start, out, \
-                 part_acc, part_ml, counters, T, Tk, nq, nkv, S_rows, head_stride, d,    \
+                 part_acc, part_ml, counters, B, T, Tk, nq, nkv, S_rows, head_stride, d, \
                  rows_per_tile, chunk, row_tiles, chunks, scale, st
-  if (dtype == 0) return hp == 64 ? F32(64) : hp == 128 ? F32(128) : F32(256);
+  if (slices > 1) return dtype == 0 ? F32(float, 256) : F32(__nv_bfloat16, 256);
+  if (dtype == 0) return hp == 64 ? F32(float, 64) : hp == 128 ? F32(float, 128) : F32(float, 256);
   return hp == 64 ? MMA(64) : hp == 128 ? MMA(128) : MMA(256);
 #undef F32
 #undef MMA

@@ -34,6 +34,7 @@ from .sampling import process_logits
 
 
 class AcceptResult(NamedTuple):
+    """One walk's results, or a batch's with a leading B on each."""
     path: torch.Tensor        # [PATH] node ids; path[0] = 0; repeats past accept
     accept_len: torch.Tensor  # scalar — accepted nodes beyond the root
     sample_p: torch.Tensor    # [V] fp32 — the bonus token's distribution
@@ -48,32 +49,42 @@ def accept_greedy(tree: Tree, logits: torch.Tensor, path_len: int,
     ref_next ([path_len], optional): forced replay — the token that must
     follow the path node at depth d is ref_next[d] instead of the live
     argmax; `live_match` counts where the live argmax agreed.
+
+    A batch walks all its trees at once: tree fields with a leading B,
+    logits [B, N, V], ref_next [B, path_len]; every result gains the B.
     """
+    if logits.dim() == 2:
+        r = accept_greedy(tree.map(lambda x: x[None]), logits[None], path_len,
+                          None if ref_next is None else ref_next[None])
+        return AcceptResult(*(x[0] for x in r))
     dev = logits.device
-    argmax_tok = torch.argmax(logits, dim=-1)                  # [N]
-    # rows are picked with index_select / gather: indexing by a 0-d tensor
-    # reads the index on the host, which waits for the device
-    row = lambda x, i: x.index_select(0, i.reshape(1))[0]
-    cur = torch.zeros((), dtype=torch.long, device=dev)
-    alen = torch.zeros((), dtype=torch.long, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    hits = torch.zeros((), dtype=torch.long, device=dev)
+    B, _, V = logits.shape
+    argmax_tok = torch.argmax(logits, dim=-1)                  # [B, N]
+    # rows are picked with gather: indexing by a device tensor that the host
+    # must read would wait for the device
+    K = tree.children.shape[-1]
+    row = lambda x, i: x.gather(1, i[:, None])[:, 0]
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    alen = torch.zeros(B, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    hits = torch.zeros(B, dtype=torch.long, device=dev)
     rest = []
     for d in range(path_len - 1):
         t_live = row(argmax_tok, cur)
-        t_star = t_live if ref_next is None else ref_next[d]
-        ch = row(tree.children, cur)                           # [K]
-        ctok = tree.tokens[ch.clamp(min=0)]
-        match = (ctok == t_star) & (ch >= 0)
-        has = match.any() & ~done
-        nxt = row(ch, torch.argmax(match.to(torch.int32)))     # first match
+        t_star = t_live if ref_next is None else ref_next[:, d]
+        ch = tree.children.gather(1, cur[:, None, None].expand(B, 1, K))[:, 0]   # [B, K]
+        ctok = tree.tokens.gather(1, ch.clamp(min=0))
+        match = (ctok == t_star[:, None]) & (ch >= 0)
+        has = match.any(dim=-1) & ~done
+        nxt = row(ch, torch.argmax(match.to(torch.int32), dim=-1))   # first match
         cur = torch.where(has, nxt, cur)
         hits = hits + ((t_live == t_star) & ~done).to(torch.long)
         alen = alen + has.to(torch.long)
         done = done | ~has
         rest.append(cur)
-    path = torch.stack([torch.zeros((), dtype=torch.long, device=dev)] + rest)
-    sample_p = torch.softmax(row(logits, cur).to(torch.float32), dim=-1)
+    path = torch.stack([torch.zeros(B, dtype=torch.long, device=dev)] + rest, dim=-1)
+    final = logits.gather(1, cur[:, None, None].expand(B, 1, V))[:, 0]
+    sample_p = torch.softmax(final.to(torch.float32), dim=-1)
     return AcceptResult(path=path, accept_len=alen, sample_p=sample_p,
                         live_match=hits)
 

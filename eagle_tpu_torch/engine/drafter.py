@@ -24,6 +24,16 @@ as `jax.lax.top_k` and the JAX package's `topk_rows` do. `torch.topk` does
 not promise that, so `topk_rows` (ops/score_topk.py) is a stable descending
 sort.
 
+Batches: every drafting function takes B sequences at once (ext_tokens
+[B, T], ext_feats [B, T, F], n_new [B], a draft cache with B rows and
+length [B]), runs one draft forward per step for the whole batch, scores
+all B x top_k beam rows in one `score_topk` call and returns a Tree with a
+leading B, as the JAX package's batched rounds vmap these functions. One
+sequence's operands (ext_tokens [T], n_new a scalar) are the batch of one,
+and its Tree has no leading B. A batch's `noise(shape)` is asked for
+(B, n, dV): row b's n x dV uniforms, drawn from row b's own stream in the
+single-sequence order and shape.
+
 Draft-sequence convention: draft position i holds the token at target
 position i+1 paired with the target feature at position i.
 """
@@ -34,7 +44,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import DraftConfig, EngineConfig
 from ..models import draft as draft_mod
@@ -42,7 +51,7 @@ from ..ops.kv_cache import KVCache
 from ..ops.masks import place_slab, prefill_mask
 from ..ops.score_topk import score_topk_quant, topk_rows
 from ..ops.tree import (Tree, ancestor_mask, build_tree, depths_from_mask,
-                        max_children, paths_to_parents)
+                        max_children, paths_to_parents, sibling_rank)
 from .sampling import process_logits
 
 # noise(shape) -> fp32 uniforms in [1e-20, 1) on the drafting device
@@ -72,6 +81,49 @@ def score_topk(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
 class DraftRound(NamedTuple):
     tree: Tree
     dcache: KVCache  # committed draft cache (length excludes beam scratch)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, i]] for x [B, n, ...] and idx [B, m] → [B, m, ...]."""
+    full = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, full.expand(idx.shape + x.shape[2:]))
+
+
+def _row_temp(temp, n: int):
+    """A batch's temperature ([B] on the device, or a float) for its B*n
+    rows of logits, each row divided by its own sequence's."""
+    if not torch.is_tensor(temp):
+        return temp
+    return temp.reshape(-1).repeat_interleave(n)[:, None]
+
+
+def _single(fn, ext_tokens, ext_feats, n_new, noise, temperature, *args, **kw):
+    """Run the batched drafting function `fn` on one sequence's operands as
+    a batch of one; its Tree loses the leading B."""
+    row_noise = None if noise is None else (lambda shape: noise(shape[1:])[None])
+    if torch.is_tensor(temperature):
+        temperature = temperature.reshape(1)
+    dr = fn(*args, ext_tokens[None], ext_feats[None], n_new.reshape(1), noise=row_noise,
+            temperature=temperature, **kw)
+    return dr._replace(tree=dr.tree.map(lambda x: x[0]))
+
+
+def _extend(dparams, dcfg, ext_tokens, ext_feats, n_new, dcache):
+    """Extend the draft cache on the accepted pairs of each sequence: returns
+    (the pending root's hidden [B, H] and token [B], the cache's buffers,
+    the new committed length [B])."""
+    B, T = ext_tokens.shape
+    S = dcache.max_len
+    dev = ext_tokens.device
+    dlen0 = dcache.length
+    n_new = n_new.to(torch.long)
+    pos = dlen0[:, None] + torch.arange(T, device=dev)
+    mask = prefill_mask(T, S, dcache.length)
+    dres = draft_mod.forward(dparams, dcfg, ext_tokens, ext_feats, dcache, pos, mask)
+    last = torch.remainder(n_new - 1, T)[:, None]      # JAX wraps a -1 index
+    root_hidden = _rows(dres.hidden, last)[:, 0]
+    root_token = ext_tokens.gather(1, last)[:, 0]
+    return root_hidden, root_token, dres.cache.k, dres.cache.v, dlen0 + n_new
 
 
 def _sampling_temperature(ecfg: Optional[EngineConfig], noise, temperature,
@@ -182,8 +234,8 @@ def draft_round_static(dparams: dict, dcfg: DraftConfig, spec: StaticTreeSpec,
                        noise: Optional[Noise] = None,
                        temperature=None) -> DraftRound:
     """EAGLE-1 static-tree drafting: expand the fixed topology level by
-    level. The draft cache is written in place; tree rows past the committed
-    length are scratch.
+    level, for one sequence or a batch (module docstring). The draft cache
+    is written in place; tree rows past the committed length are scratch.
 
     Greedy: a node's token is the `rank`-th top-k token of its parent's draft
     logits. Sampled (ecfg.temperature > 0, acceptance "true_q" or
@@ -191,83 +243,83 @@ def draft_round_static(dparams: dict, dcfg: DraftConfig, spec: StaticTreeSpec,
     replacement from its processed draft distribution, which goes to
     Tree.node_probs. Draws: [1, dV] for the root, then [n_d, dV] for each
     level that has children, in level order."""
+    if ext_tokens.dim() == 1:
+        return _single(draft_round_static, ext_tokens, ext_feats, n_new, noise,
+                       temperature, dparams, dcfg, spec, dcache=dcache,
+                       target_lm_head=target_lm_head, ecfg=ecfg)
     temp = _sampling_temperature(ecfg, noise, temperature, ("true_q", "true_q_dynamic"))
     sampled = temp is not None
     k = spec.k
-    T = ext_tokens.shape[0]
+    B = ext_tokens.shape[0]
     S = dcache.max_len
     dev = ext_tokens.device
-    dlen0 = dcache.length[0]
-    n_new = n_new.to(torch.long)
-    dlen = dlen0 + n_new
 
     # ---- extend on the accepted suffix
-    pos = (dlen0 + torch.arange(T, device=dev))[None]
-    mask = prefill_mask(T, S, dcache.length)
-    dres = draft_mod.forward(dparams, dcfg, ext_tokens[None], ext_feats[None],
-                             dcache, pos, mask)
-    last = torch.remainder(n_new - 1, T)      # JAX wraps a -1 index
-    root_hidden = dres.hidden[0].index_select(0, last.reshape(1))[0]
-    root_token = ext_tokens.index_select(0, last.reshape(1))[0]
-    kc, vc = dres.cache.k, dres.cache.v
+    root_hidden, root_token, kc, vc, dlen = _extend(dparams, dcfg, ext_tokens,
+                                                    ext_feats, n_new, dcache)
+    H = root_hidden.shape[-1]
 
     def candidate_topk(hidden_rows: torch.Tensor):
-        """[n, H] hidden rows -> (tokens [n, k] target-vocab, probs
-        [n, V_target] or None)."""
-        logits = draft_mod.draft_logits(dparams, dcfg, hidden_rows, target_lm_head)
+        """[B, n, H] hidden rows -> (tokens [B, n, k] target-vocab, probs
+        [B, n, V_target] or None)."""
+        n = hidden_rows.shape[1]
+        logits = draft_mod.draft_logits(dparams, dcfg, hidden_rows.reshape(B * n, H),
+                                        target_lm_head)
         if sampled:
-            return _gumbel_topk_candidates(dparams, dcfg, ecfg, logits,
-                                           noise(tuple(logits.shape)), temp, k)
+            u = noise((B, n, logits.shape[-1])).reshape(logits.shape)
+            tok, probs = _gumbel_topk_candidates(dparams, dcfg, ecfg, logits, u,
+                                                 _row_temp(temp, n), k)
+            return tok.reshape(B, n, k), probs.reshape(B, n, -1)
         _, tk = topk_rows(logits, k)
-        return draft_mod.map_draft_to_target(dparams, dcfg, tk), None
+        return draft_mod.map_draft_to_target(dparams, dcfg, tk).reshape(B, n, k), None
 
     N = spec.num_nodes
-    node_tokens = torch.zeros((N,), dtype=torch.long, device=dev)
-    node_hidden = torch.zeros((N, root_hidden.shape[-1]), dtype=dcfg.dtype, device=dev)
-    node_hidden[0] = root_hidden
-    topk_per_node = torch.zeros((N, k), dtype=torch.long, device=dev)
-    root_topk, root_probs = candidate_topk(root_hidden[None])
-    topk_per_node[0] = root_topk[0]
+    node_tokens = torch.zeros((B, N), dtype=torch.long, device=dev)
+    node_hidden = torch.zeros((B, N, H), dtype=dcfg.dtype, device=dev)
+    node_hidden[:, 0] = root_hidden
+    topk_per_node = torch.zeros((B, N, k), dtype=torch.long, device=dev)
+    root_topk, root_probs = candidate_topk(root_hidden[:, None])
+    topk_per_node[:, 0] = root_topk[:, 0]
     node_probs = None
     if sampled:
-        node_probs = torch.zeros((N, dcfg.vocab_size), dtype=torch.float32, device=dev)
-        node_probs[0] = root_probs[0]
+        node_probs = torch.zeros((B, N, dcfg.vocab_size), dtype=torch.float32, device=dev)
+        node_probs[:, 0] = root_probs[:, 0]
 
     parents, levels = spec.on_device(dev)
-    committed = torch.arange(S, device=dev)[None, :] < dlen
+    committed = torch.arange(S, device=dev)[None, :] < dlen[:, None]        # [B, S]
     written = 0  # tree-scratch rows written so far (a host counter)
     for d, (lvl, par, rnk, anc_slab) in enumerate(levels):
         n_d = lvl.shape[0]
-        toks = topk_per_node[par, rnk]                             # [n_d]
-        node_tokens[lvl] = toks
-        hid = node_hidden[par]                                     # [n_d, H]
-        lvl_cache = KVCache(k=kc, v=vc, length=(dlen + written).reshape(1))
-        lvl_pos = (dlen + d).reshape(1, 1).expand(1, n_d)
+        toks = topk_per_node[:, par, rnk]                          # [B, n_d]
+        node_tokens[:, lvl] = toks
+        hid = node_hidden[:, par]                                  # [B, n_d, H]
+        lvl_cache = KVCache(k=kc, v=vc, length=dlen + written)
+        lvl_pos = (dlen + d)[:, None].expand(B, n_d)
         # mask: committed columns + the static ancestors' tree rows
-        m = committed.expand(n_d, S) | place_slab(anc_slab[None], S, dlen.reshape(1))[0]
-        res = draft_mod.forward(dparams, dcfg, toks[None], hid[None], lvl_cache,
-                                lvl_pos, m[None])
-        h = res.hidden[0]
-        node_hidden[lvl] = h
+        m = (committed[:, None, :].expand(B, n_d, S)
+             | place_slab(anc_slab[None].expand(B, -1, -1), S, dlen))
+        res = draft_mod.forward(dparams, dcfg, toks, hid, lvl_cache, lvl_pos, m)
+        h = res.hidden
+        node_hidden[:, lvl] = h
         if d + 1 < spec.max_depth:
-            topk_per_node[lvl], pr = candidate_topk(h)
+            tk, pr = candidate_topk(h)
+            topk_per_node[:, lvl] = tk
             if sampled:
-                node_probs[lvl] = pr
+                node_probs[:, lvl] = pr
         written += n_d
 
-    node_tokens[0] = root_token
-    tree = build_tree(node_tokens, parents, k, max_depth=spec.max_depth + 1,
+    node_tokens[:, 0] = root_token
+    tree = build_tree(node_tokens, parents.expand(B, N), k, max_depth=spec.max_depth + 1,
                       node_probs=node_probs)
-    return DraftRound(tree=tree, dcache=KVCache(k=kc, v=vc, length=dlen.reshape(1)))
+    return DraftRound(tree=tree, dcache=KVCache(k=kc, v=vc, length=dlen))
 
 
 def _beam_mask(anc: torch.Tensor, S: int, dlen: torch.Tensor) -> torch.Tensor:
-    """[k, depth*k] beam-ancestor slab → [1, k, S] mask: committed pairs at
-    columns < dlen, beam rows at [dlen, dlen + depth*k)."""
-    k = anc.shape[0]
-    committed = torch.arange(S, device=anc.device)[None, :] < dlen
-    placed = place_slab(anc[None], S, dlen.reshape(1))[0]
-    return (committed.expand(k, S) | placed)[None]
+    """[B, k, depth*k] beam-ancestor slabs → [B, k, S] mask: committed pairs
+    at columns < dlen, beam rows at [dlen, dlen + depth*k)."""
+    B, k = anc.shape[:2]
+    committed = torch.arange(S, device=anc.device)[None, :] < dlen[:, None]
+    return committed[:, None, :].expand(B, k, S) | place_slab(anc, S, dlen)
 
 
 def draft_round(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
@@ -275,7 +327,8 @@ def draft_round(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
                 n_new: torch.Tensor, dcache: KVCache,
                 target_lm_head: Optional[torch.Tensor] = None,
                 noise: Optional[Noise] = None, temperature=None) -> DraftRound:
-    """Extend the draft cache with the accepted pairs, then grow a new tree.
+    """Extend the draft cache with the accepted pairs, then grow a new tree,
+    for one sequence or a batch (module docstring).
 
     ext_tokens: [T] padded pair tokens (row n_new-1 is the pending root);
     ext_feats: [T, F] padded pair features; n_new: device scalar, number of
@@ -289,62 +342,57 @@ def draft_round(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
     `_expand_sampled_shape` then re-expands that shape with sampled
     candidates and fills Tree.node_probs.
     """
+    if ext_tokens.dim() == 1:
+        return _single(draft_round, ext_tokens, ext_feats, n_new, noise, temperature,
+                       dparams, dcfg, ecfg, dcache=dcache, target_lm_head=target_lm_head)
     k, depth, total = ecfg.top_k, ecfg.depth, ecfg.total_tokens
-    T = ext_tokens.shape[0]
+    B = ext_tokens.shape[0]
     S = dcache.max_len
     dev = ext_tokens.device
-    dlen0 = dcache.length[0]
-    n_new = n_new.to(torch.long)
-    dlen = dlen0 + n_new
 
     # ---- 1. extend on the accepted suffix
-    pos = (dlen0 + torch.arange(T, device=dev))[None]
-    mask = prefill_mask(T, S, dcache.length)
-    dres = draft_mod.forward(dparams, dcfg, ext_tokens[None], ext_feats[None],
-                             dcache, pos, mask)
-    last = torch.remainder(n_new - 1, T)      # JAX wraps a -1 index
-    root_hidden = dres.hidden[0].index_select(0, last.reshape(1))[0]
-    root_token = ext_tokens.index_select(0, last.reshape(1))[0]
-    kc, vc = dres.cache.k, dres.cache.v
+    root_hidden, root_token, kc, vc, dlen = _extend(dparams, dcfg, ext_tokens,
+                                                    ext_feats, n_new, dcache)
+    H = root_hidden.shape[-1]
 
-    # ---- 2. root candidates
-    root_p, root_i = score_topk(dparams, dcfg, ecfg, root_hidden[None],
-                                target_lm_head, k)
-    root_p, root_i = root_p[0], root_i[0]
-    root_tok = draft_mod.map_draft_to_target(dparams, dcfg, root_i)
+    # ---- 2. root candidates (B rows in one scoring call)
+    root_p, root_i = score_topk(dparams, dcfg, ecfg, root_hidden, target_lm_head, k)
+    root_tok = draft_mod.map_draft_to_target(dparams, dcfg, root_i)      # [B, k]
 
-    # ---- 3. beam expansion
+    # ---- 3. beam expansion: one draft forward and one scoring call of B*k
+    # rows per step
     eye = torch.eye(k, dtype=torch.bool, device=dev)
-    anc = torch.zeros((k, depth * k), dtype=torch.bool, device=dev)
-    anc[:, :k] = eye
+    anc = torch.zeros((B, k, depth * k), dtype=torch.bool, device=dev)
+    anc[:, :, :k] = eye
     tokens = root_tok
-    hidden = root_hidden.expand(k, root_hidden.shape[-1])
+    hidden = root_hidden[:, None].expand(B, k, H)
     scores = root_p
-    prev_flat = torch.arange(k, device=dev)
+    prev_flat = torch.arange(k, device=dev).expand(B, k)
     beam_ids_all, cu_all, cand_all = [], [], []
     for i in range(depth):
         write_at = dlen + i * k
-        beam_cache = KVCache(k=kc, v=vc, length=write_at.reshape(1))
-        bpos = (dlen + i).reshape(1, 1).expand(1, k)
+        beam_cache = KVCache(k=kc, v=vc, length=write_at)
+        bpos = (dlen + i)[:, None].expand(B, k)
         bmask = _beam_mask(anc, S, dlen)
-        res = draft_mod.forward(dparams, dcfg, tokens[None], hidden[None],
-                                beam_cache, bpos, bmask)
-        hid = res.hidden[0]                                   # [k, H]
-        tk_p, tk_i = score_topk(dparams, dcfg, ecfg, hid, target_lm_head, k)
+        res = draft_mod.forward(dparams, dcfg, tokens, hidden, beam_cache, bpos, bmask)
+        hid = res.hidden                                      # [B, k, H]
+        tk_p, tk_i = score_topk(dparams, dcfg, ecfg, hid.reshape(B * k, H),
+                                target_lm_head, k)
+        tk_p, tk_i = tk_p.reshape(B, k, k), tk_i.reshape(B, k, k)
         cand_tok = draft_mod.map_draft_to_target(dparams, dcfg, tk_i)
-        cu = tk_p + scores[:, None]                           # [k, k]
-        cs_p, cs_i = topk_rows(cu.reshape(-1), k)             # beam rerank
+        cu = tk_p + scores[:, :, None]                        # [B, k, k]
+        cs_p, cs_i = topk_rows(cu.reshape(B, k * k), k)       # beam rerank
         out_ids = cs_i // k
         # node ids of this step's beam rows in flat-score space (+1 for root)
         if i == 0:
-            beam_ids = torch.arange(k, device=dev) + 1
+            beam_ids = (torch.arange(k, device=dev) + 1).expand(B, k)
         else:
             beam_ids = k + (i - 1) * k * k + prev_flat + 1
-        new_anc = anc[out_ids]
+        new_anc = _rows(anc, out_ids)
         blk = min(i + 1, depth - 1) * k    # the last step's anc is unused
-        new_anc[:, blk:blk + k] = eye
-        tokens = cand_tok.reshape(-1)[cs_i]
-        hidden = hid[out_ids]
+        new_anc[:, :, blk:blk + k] = eye
+        tokens = cand_tok.reshape(B, k * k).gather(1, cs_i)
+        hidden = _rows(hid, out_ids)
         scores = cs_p
         anc = new_anc
         prev_flat = cs_i
@@ -353,19 +401,19 @@ def draft_round(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
         cand_all.append(cand_tok)
 
     # ---- 4. global rerank to total_tokens nodes
-    scores_flat = torch.cat([root_p, torch.stack(cu_all).reshape(-1)])
-    tokens_flat = torch.cat([root_tok, torch.stack(cand_all).reshape(-1)])
-    parents_flat = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
-                              torch.stack(beam_ids_all).reshape(-1)])
+    zero = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    scores_flat = torch.cat([root_p, torch.stack(cu_all, 1).reshape(B, -1)], 1)
+    tokens_flat = torch.cat([root_tok, torch.stack(cand_all, 1).reshape(B, -1)], 1)
+    parents_flat = torch.cat([zero, torch.stack(beam_ids_all, 1).reshape(B, -1)], 1)
     _, sel = topk_rows(scores_flat, total)
-    sel, _ = torch.sort(sel)                  # ascending → parents precede
-    draft_parents = parents_flat[sel // k]
+    sel, _ = torch.sort(sel, dim=-1)          # ascending → parents precede
+    draft_parents = parents_flat.gather(1, sel // k)
     parent_rank = torch.searchsorted(sel, draft_parents - 1, right=False)
     tree_parents = torch.where(draft_parents == 0, 0, parent_rank + 1)
 
-    tokens_full = torch.cat([root_token.reshape(1), tokens_flat[sel]])
-    parents_full = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), tree_parents])
-    dcache_out = KVCache(k=kc, v=vc, length=dlen.reshape(1))
+    tokens_full = torch.cat([root_token[:, None], tokens_flat.gather(1, sel)], 1)
+    parents_full = torch.cat([zero, tree_parents], 1)
+    dcache_out = KVCache(k=kc, v=vc, length=dlen)
     temp = _sampling_temperature(ecfg, noise, temperature, ("true_q_dynamic",))
     if temp is not None:
         return _expand_sampled_shape(dparams, dcfg, ecfg, parents_full, dcache_out,
@@ -379,10 +427,10 @@ def _expand_sampled_shape(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
                           parents: torch.Tensor, cache: KVCache, dlen: torch.Tensor,
                           root_hidden: torch.Tensor, root_token: torch.Tensor,
                           target_lm_head, noise: Noise, temp) -> DraftRound:
-    """Pass 2 of sampled dynamic drafting: re-expand the tree shape `parents`
-    (from the deterministic beam) with per-node Gumbel without-replacement
-    draws; a node's children take the first draws of its parent, in node
-    order (prefix-closed).
+    """Pass 2 of sampled dynamic drafting, for a batch (parents [B, N]):
+    re-expand the tree shape `parents` (from the deterministic beam) with
+    per-node Gumbel without-replacement draws; a node's children take the
+    first draws of its parent, in node order (prefix-closed).
 
     Level-synchronous, fixed shapes: every level forwards ALL N-1 non-root
     rows (tree rows at draft-cache rows [dlen, dlen + N - 1), node order);
@@ -392,55 +440,61 @@ def _expand_sampled_shape(dparams: dict, dcfg: DraftConfig, ecfg: EngineConfig,
     the last level leaves every row's K/V right. Draws: [1, dV] for the
     root, then [N - 1, dV] per level that has children."""
     k, depth = ecfg.top_k, ecfg.depth
-    N = parents.shape[0]
+    B, N = parents.shape
     S = cache.max_len
     dev = parents.device
+    H = root_hidden.shape[-1]
     max_depth = depth + 2  # node depths span [0, depth + 1]
 
-    anc = ancestor_mask(parents, max_depth)                # [N, N]
-    depths = depths_from_mask(anc)                         # [N]
+    anc = ancestor_mask(parents, max_depth)                # [B, N, N]
+    depths = depths_from_mask(anc)                         # [B, N]
     # sibling rank in node order == draw rank (the shape keeps the first
     # m_n draws of each node)
     idx = torch.arange(N, device=dev)
-    onehot = F.one_hot(parents, N) * (idx > 0)[:, None]
-    rank = torch.cumsum(onehot, dim=0) - onehot
-    sib_rank = rank.gather(1, parents[:, None])[:, 0]
+    draw_of_parent = parents * k + sibling_rank(parents)   # into draws [B, N*k]
 
-    node_tokens = torch.zeros((N,), dtype=torch.long, device=dev)
-    node_tokens[0] = root_token
-    node_hidden = torch.zeros((N, root_hidden.shape[-1]), dtype=dcfg.dtype, device=dev)
-    node_hidden[0] = root_hidden
-    node_probs = torch.zeros((N, dcfg.vocab_size), dtype=torch.float32, device=dev)
+    node_tokens = torch.zeros((B, N), dtype=torch.long, device=dev)
+    node_tokens[:, 0] = root_token
+    node_hidden = torch.zeros((B, N, H), dtype=dcfg.dtype, device=dev)
+    node_hidden[:, 0] = root_hidden
+    node_probs = torch.zeros((B, N, dcfg.vocab_size), dtype=torch.float32, device=dev)
 
-    root_logits = draft_mod.draft_logits(dparams, dcfg, root_hidden[None], target_lm_head)
-    root_draws, root_q = _gumbel_topk_candidates(
-        dparams, dcfg, ecfg, root_logits, noise(tuple(root_logits.shape)), temp, k)
-    draws = torch.zeros((N, k), dtype=torch.long, device=dev)
-    draws[0] = root_draws[0]
-    node_probs[0] = root_q[0]
+    def candidates(hidden_rows: torch.Tensor):
+        """[B, n, H] → draws [B, n, k] and their distributions [B, n, V]."""
+        n = hidden_rows.shape[1]
+        logits = draft_mod.draft_logits(dparams, dcfg, hidden_rows.reshape(B * n, H),
+                                        target_lm_head)
+        u = noise((B, n, logits.shape[-1])).reshape(logits.shape)
+        tk, q = _gumbel_topk_candidates(dparams, dcfg, ecfg, logits, u,
+                                        _row_temp(temp, n), k)
+        return tk.reshape(B, n, k), q.reshape(B, n, -1)
+
+    root_draws, root_q = candidates(root_hidden[:, None])
+    draws = torch.zeros((B, N, k), dtype=torch.long, device=dev)
+    draws[:, 0] = root_draws[:, 0]
+    node_probs[:, 0] = root_q[:, 0]
 
     # rows 1..N-1 ride at draft-cache columns [dlen, dlen + N - 1)
-    committed = torch.arange(S, device=dev)[None, :] < dlen
-    mask = (committed.expand(N - 1, S)
-            | place_slab(anc[None, 1:, 1:], S, dlen.reshape(1))[0])[None]
-    pos = (dlen + depths[1:] - 1)[None]                    # [1, N-1]
+    committed = torch.arange(S, device=dev)[None, :] < dlen[:, None]
+    mask = (committed[:, None, :].expand(B, N - 1, S)
+            | place_slab(anc[:, 1:, 1:], S, dlen))
+    pos = dlen[:, None] + depths[:, 1:] - 1                # [B, N-1]
     kc, vc = cache.k, cache.v
     for d in range(1, max_depth):
-        at_d = (depths == d) & (idx > 0)                   # [N]
-        node_tokens = torch.where(at_d, draws[parents, sib_rank], node_tokens)
-        feats = node_hidden[parents[1:]]                   # [N-1, H]
-        res = draft_mod.forward(dparams, dcfg, node_tokens[None, 1:], feats[None],
-                                KVCache(k=kc, v=vc, length=dlen.reshape(1)), pos, mask)
+        at_d = (depths == d) & (idx > 0)                   # [B, N]
+        node_tokens = torch.where(at_d, draws.reshape(B, N * k).gather(1, draw_of_parent),
+                                  node_tokens)
+        feats = _rows(node_hidden, parents[:, 1:])         # [B, N-1, H]
+        res = draft_mod.forward(dparams, dcfg, node_tokens[:, 1:], feats,
+                                KVCache(k=kc, v=vc, length=dlen), pos, mask)
         kc, vc = res.cache.k, res.cache.v
-        hid = torch.cat([node_hidden[:1], res.hidden[0]])  # [N, H]
-        node_hidden = torch.where(at_d[:, None], hid, node_hidden)
+        hid = torch.cat([node_hidden[:, :1], res.hidden], 1)   # [B, N, H]
+        node_hidden = torch.where(at_d[..., None], hid, node_hidden)
         if d < max_depth - 1:  # leaf draws are never used
-            logits = draft_mod.draft_logits(dparams, dcfg, res.hidden[0], target_lm_head)
-            tk, q = _gumbel_topk_candidates(dparams, dcfg, ecfg, logits,
-                                            noise(tuple(logits.shape)), temp, k)
-            draws = torch.where(at_d[:, None], torch.cat([draws[:1], tk]), draws)
-            node_probs = torch.where(at_d[:, None], torch.cat([node_probs[:1], q]),
+            tk, q = candidates(res.hidden)
+            draws = torch.where(at_d[..., None], torch.cat([draws[:, :1], tk], 1), draws)
+            node_probs = torch.where(at_d[..., None], torch.cat([node_probs[:, :1], q], 1),
                                      node_probs)
 
     tree = build_tree(node_tokens, parents, k, max_depth=max_depth, node_probs=node_probs)
-    return DraftRound(tree=tree, dcache=KVCache(k=kc, v=vc, length=dlen.reshape(1)))
+    return DraftRound(tree=tree, dcache=KVCache(k=kc, v=vc, length=dlen))

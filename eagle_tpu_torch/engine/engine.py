@@ -1,13 +1,23 @@
-"""EagleEngine — speculative decoding, B = 1, on one device, greedy or sampled.
+"""EagleEngine — speculative decoding on one device, greedy or sampled, one
+sequence or a batch.
 
-Port of eagle_tpu/engine/engine.py for the single-sequence engine:
-`_prefill`, `_round` (tree verify → acceptance → KV compaction → next draft
-tree), `generate`, `generate_fused`, `generate_stream`, the vanilla baseline
-and its stream, `calibrate_total_tokens` and `from_pretrained`.
-The JAX engine jits each round into one XLA program; here PyTorch runs
-eagerly and a round keeps every offset on the device, so it never waits on
-the host. `generate_fused` is a host loop whose only per-round sync reads
-the stop flag and the committed length in one transfer.
+Port of eagle_tpu/engine/engine.py: `_prefill`, `_round` (tree verify →
+acceptance → KV compaction → next draft tree), `generate`, `generate_fused`,
+`generate_stream`, the batched `generate_batch` and `generate_batch_fused`,
+the vanilla baseline and its stream, `calibrate_total_tokens` and
+`from_pretrained`. The JAX engine jits each round into one XLA program; here
+PyTorch runs eagerly and a round keeps every offset on the device, so it
+never waits on the host. `generate_fused` is a host loop whose only
+per-round sync reads the stop flag and the committed length in one transfer.
+
+Batches: the JAX engine vmaps its one-sequence `_prefill` and `_round` over
+the batch. Here the round is written once over a leading batch dimension
+(`_prefill_rows`, `_round_rows`): every cache write, the tree-verify
+attention kernel, the draft forwards and the fused scorer run once for the
+whole batch, and a one-sequence state is its batch of one. As in JAX, the
+compaction kernel runs only for one sequence (a batch takes the plain row
+moves), a finished row commits nothing, the capacity stop is per row, and a
+batch picks one `kv_buckets` bucket from its longest row.
 
 Ported operating points: bf16/fp32, int8 and int4 targets (params from
 ops/quant.quantize_target_params / ops/quant4.quantize_target_params4),
@@ -37,8 +47,13 @@ the acceptance uniforms, the bonus token's, then the draft's (JAX's
 differ from `jax.random`'s, so the sampled functions take their noise as an
 argument and are held against JAX on the same uniforms.
 
-Options not ported yet raise NotImplementedError: batched generation,
-sp_mesh, a mesh in from_pretrained, MoE and sliding-window targets.
+A batch's request draws from one generator per row: row i's is seeded
+with `seed + i`, so row i of a batched sampled request draws what the
+one-sequence request with seed `seed + i` draws, whatever the batch size.
+Each row's temperature rides in EngineState as its own device value.
+
+Options not ported yet raise NotImplementedError: sp_mesh, a mesh in
+from_pretrained, MoE and sliding-window targets.
 """
 
 from __future__ import annotations
@@ -57,34 +72,58 @@ from ..models import draft as draft_mod
 from ..models import transformer
 from ..ops.attn_kernels import compact_rows
 from ..ops.kv_cache import (KVCache, compact_accepted, init_cache,
-                            merge_rows_window, slice_rows, window, with_length)
+                            merge_rows_window, slice_rows, windows, with_length)
 from ..ops.masks import TreeMaskSpec, prefill_mask
 from ..ops.quant import quantize_draft_params, quantize_target_params
 from ..ops.quant4 import quantize_draft_params4, quantize_target_params4
 from ..ops.tree import Tree
 from . import accept as accept_mod
-from .drafter import StaticTreeSpec, draft_round, draft_round_static
+from .drafter import StaticTreeSpec, _rows, draft_round, draft_round_static
 from .sampling import U_MIN, categorical, process_logits, uniform
 
 
 class EngineState(NamedTuple):
-    tokens: torch.Tensor   # [1, S] committed tokens (+ scratch tail)
-    length: torch.Tensor   # scalar committed length
+    """One sequence's state, or a batch's: then `length`, `done` and
+    `temperature` are [B], the tree has a leading B, and `gen` is a tuple of
+    B generators."""
+    tokens: torch.Tensor   # [B, S] committed tokens (+ scratch tail); B = 1 alone
+    length: torch.Tensor   # committed length: scalar, or [B]
     cache: KVCache         # target KV
     dcache: KVCache        # draft KV (pairs)
     tree: Tree             # next tree to verify
-    done: torch.Tensor     # scalar bool — sequence finished
-    # the request's sampling temperature as a device scalar (read only by a
+    done: torch.Tensor     # bool, sequence finished: scalar, or [B]
+    # the request's sampling temperature on the device (read only by a
     # sampled engine) and its noise generator (None on a greedy engine)
     temperature: Optional[torch.Tensor] = None
     gen: Optional[torch.Generator] = None
 
+    @property
+    def batched(self) -> bool:
+        return self.done.dim() == 1
+
 
 class RoundOutput(NamedTuple):
+    """One sequence's round, or a batch's with a leading B on each."""
     new_tokens: torch.Tensor  # [PATH] committed this round (first n_acc valid)
     accept_len: torch.Tensor  # scalar (-1 when the sequence is done)
     done: torch.Tensor        # scalar bool
     live_match: torch.Tensor  # forced replay: live-argmax agreements
+
+
+def _as_batch(state: EngineState) -> EngineState:
+    """A one-sequence state as a batch of one (views: nothing is copied)."""
+    one = lambda x: None if x is None else x.reshape(1)
+    return state._replace(length=one(state.length), tree=state.tree.map(lambda x: x[None]),
+                          done=one(state.done), temperature=one(state.temperature),
+                          gen=None if state.gen is None else (state.gen,))
+
+
+def _as_single(state: EngineState) -> EngineState:
+    """The batch of one back as a one-sequence state (views)."""
+    first = lambda x: None if x is None else x[0]
+    return state._replace(length=first(state.length), tree=state.tree.map(first),
+                          done=first(state.done), temperature=first(state.temperature),
+                          gen=first(state.gen))
 
 
 def _target_feats(res: transformer.ForwardResult, version: int) -> torch.Tensor:
@@ -251,13 +290,13 @@ class EagleEngine:
         margin = 16 if e.compact_impl == "pallas" else 0
         return -(-(e.max_len + e.tree_size + margin) // 128) * 128
 
-    def init_target_cache(self) -> KVCache:
+    def init_target_cache(self, batch: int = 1) -> KVCache:
         c = self.cfg
-        return init_cache(c.num_layers, 1, c.num_kv_heads, self._tgt_len(),
+        return init_cache(c.num_layers, batch, c.num_kv_heads, self._tgt_len(),
                           c.head_dim, dtype=c.dtype, device=self.device,
                           kv_quant=self.ecfg.kv_quant)
 
-    def init_draft_cache(self) -> KVCache:
+    def init_draft_cache(self, batch: int = 1) -> KVCache:
         """The draft cache stays in the draft's dtype whatever kv_quant is."""
         e, d = self.ecfg, self.dcfg
         # draft scratch past the committed pairs: beam rows (dynamic) or tree
@@ -265,12 +304,12 @@ class EagleEngine:
         scratch = (e.tree_size if self.static_spec is not None
                    else max((e.depth + 1) * e.top_k, e.tree_size))
         dft_len = e.max_len + scratch + self.path_len
-        return init_cache(d.num_layers if d.version == 1 else 1, 1,
+        return init_cache(d.num_layers if d.version == 1 else 1, batch,
                           d.num_kv_heads, dft_len, d.head_dim, dtype=d.dtype,
                           device=self.device)
 
-    def init_caches(self) -> tuple[KVCache, KVCache]:
-        return self.init_target_cache(), self.init_draft_cache()
+    def init_caches(self, batch: int = 1) -> tuple[KVCache, KVCache]:
+        return self.init_target_cache(batch), self.init_draft_cache(batch)
 
     # ------------------------------------------------------------------
     # speculative path
@@ -280,16 +319,23 @@ class EagleEngine:
     def sampled(self) -> bool:
         return self.ecfg.temperature > 0
 
-    def _noise(self, gen: Optional[torch.Generator]):
-        """The drafter's noise: Gumbel uniforms from the request's generator
-        (None on a greedy engine)."""
-        if gen is None:
+    def _draws(self, gens, shape, low: float = 0.0) -> torch.Tensor:
+        """[B, *shape] uniforms in [low, 1): row b's from its own generator,
+        in the shape a one-sequence request draws (the one loop over the
+        batch on a round's path)."""
+        return torch.stack([uniform(g, shape, self.device, low) for g in gens])
+
+    def _noise(self, gens):
+        """The drafter's noise for a batch: Gumbel uniforms from each row's
+        generator (None on a greedy engine)."""
+        if gens is None:
             return None
-        return lambda shape: uniform(gen, shape, self.device, U_MIN)
+        return lambda shape: self._draws(gens, shape[1:], U_MIN)
 
     def _draft_round(self, ext_tokens, ext_feats, n_new, dcache, temperature=None,
-                     gen=None):
-        noise = self._noise(gen)
+                     gens=None):
+        """The next draft tree of every row of a batch."""
+        noise = self._noise(gens)
         if self.static_spec is not None:
             return draft_round_static(self.dparams, self.dcfg, self.static_spec,
                                       ext_tokens, ext_feats, n_new, dcache,
@@ -299,64 +345,79 @@ class EagleEngine:
                            ext_feats, n_new, dcache, self._lm_head_w, noise=noise,
                            temperature=temperature)
 
-    def _pick_token(self, logits: torch.Tensor, temperature=None,
-                    gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Greedy: the argmax. Sampled: a draw from the processed
-        distribution at the request's temperature (floored at 1e-4)."""
+    def _pick_tokens(self, logits: torch.Tensor, temperature=None, gens=None) -> torch.Tensor:
+        """logits [B, V] → one token a row. Greedy: the argmax. Sampled: a
+        draw from the processed distribution at the row's temperature
+        (floored at 1e-4), from the row's generator."""
         if not self.sampled:
-            return torch.argmax(logits)
+            return torch.argmax(logits, dim=-1)
         e = self.ecfg
-        p = torch.softmax(process_logits(logits, temperature.clamp_min(1e-4),
+        p = torch.softmax(process_logits(logits, temperature.clamp_min(1e-4)[:, None],
                                          e.sampling_top_k, e.top_p), dim=-1)
-        return categorical(p, uniform(gen, p.shape, self.device, U_MIN))
+        return categorical(p, self._draws(gens, p.shape[1:], U_MIN))
 
-    def _request(self, temperature: Optional[float], seed: int):
-        """A sampled request's (temperature as a device scalar, generator on
-        the engine's device seeded with `seed`); (None, None) on a greedy
-        engine."""
+    def _requests(self, temperature, seed: int, batch: int):
+        """A sampled request's (temperatures [B] on the device, one generator
+        a row on the engine's device, row i's seeded with `seed + i`);
+        (None, None) on a greedy engine. `temperature`: None (the engine's),
+        one value for every row, or one a row."""
         if not self.sampled:
             return None, None
         t = self.ecfg.temperature if temperature is None else temperature
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return torch.tensor(float(t), dtype=torch.float32, device=self.device), gen
+        t = np.asarray(t, np.float32).reshape(-1)
+        if t.size not in (1, batch):
+            raise ValueError(f"need one temperature, or one per row ({batch}), got {t.size}")
+        gens = []
+        for i in range(batch):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed) + i)
+            gens.append(gen)
+        temps = torch.from_numpy(np.broadcast_to(t, (batch,)).copy()).to(self.device)
+        return temps, tuple(gens)
 
-    def _prefill(self, tokens: torch.Tensor, prompt_len: int, cache: KVCache,
-                 dcache: KVCache, ref: Optional[torch.Tensor] = None,
-                 temperature: Optional[torch.Tensor] = None,
-                 gen: Optional[torch.Generator] = None) -> EngineState:
-        """Prompt prefill + first draft tree. tokens: [1, Tp] padded. A
-        sampled engine draws the root token, then the draft's noise."""
+    def _prefill_rows(self, tokens: torch.Tensor, prompt_lens: torch.Tensor,
+                      cache: KVCache, dcache: KVCache,
+                      ref: Optional[torch.Tensor] = None,
+                      temperature: Optional[torch.Tensor] = None,
+                      gens=None) -> EngineState:
+        """Prompt prefill + first draft tree of a batch. tokens: [B, Tp],
+        prompts padded to one bucket; prompt_lens: [B] on the device (row b
+        reads only its first prompt_lens[b] rows: the mask is causal and the
+        draft's pending root sits at prompt_lens[b] - 1); ref: [B, S] forced
+        replay; temperature: [B]; gens: one generator a row. A sampled engine
+        draws each row's root token, then the draft's noise."""
         dev = self.device
-        Tp = tokens.shape[1]
+        B, Tp = tokens.shape
         S = cache.max_len
-        pos = torch.arange(Tp, device=dev)[None]
+        pos = torch.arange(Tp, device=dev)[None].expand(B, Tp)
         res = transformer.forward(self.params, self.cfg, tokens, cache, pos,
                                   prefill_mask(Tp, S, cache.length))
-        last_logits = transformer.lm_head(self.params, self.cfg,
-                                          res.hidden[0, prompt_len - 1])
-        root = self._pick_token(last_logits, temperature, gen)
+        last = _rows(res.hidden, (prompt_lens - 1)[:, None])[:, 0]
+        root = self._pick_tokens(transformer.lm_head(self.params, self.cfg, last),
+                                 temperature, gens)
         if ref is not None:  # forced replay: the first token is pinned too
-            root = ref[prompt_len]
-        plen = torch.tensor(prompt_len, dtype=torch.long, device=dev)
-        cache = with_length(res.cache, plen.reshape(1))
-        feats = _target_feats(res, self.dcfg.version)[0]
-        ext_tokens = torch.cat([tokens[0, 1:], torch.zeros(1, dtype=torch.long, device=dev)])
-        ext_tokens[prompt_len - 1] = root
-        dr = self._draft_round(ext_tokens, feats, plen, dcache, temperature, gen)
-        tokens_buf = torch.zeros((1, S), dtype=torch.long, device=dev)
+            root = ref.gather(1, prompt_lens[:, None])[:, 0]
+        cache = with_length(res.cache, prompt_lens)
+        feats = _target_feats(res, self.dcfg.version)
+        ext_tokens = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=torch.long,
+                                                           device=dev)], 1)
+        ext_tokens.scatter_(1, (prompt_lens - 1)[:, None], root[:, None])
+        dr = self._draft_round(ext_tokens, feats, prompt_lens, dcache, temperature, gens)
+        tokens_buf = torch.zeros((B, S), dtype=torch.long, device=dev)
         tokens_buf[:, :Tp] = tokens
-        return EngineState(tokens=tokens_buf, length=plen, cache=cache,
+        return EngineState(tokens=tokens_buf, length=prompt_lens, cache=cache,
                            dcache=dr.dcache, tree=dr.tree,
-                           done=torch.zeros((), dtype=torch.bool, device=dev),
-                           temperature=temperature, gen=gen)
+                           done=torch.zeros(B, dtype=torch.bool, device=dev),
+                           temperature=temperature, gen=gens)
 
     def _round(self, state: EngineState, ref: Optional[torch.Tensor] = None,
                kv_limit: Optional[int] = None):
-        """One speculative decode round, with no host sync.
+        """One speculative decode round, with no host sync, of one sequence
+        or of a batch (EngineState.batched).
 
-        ref (optional): forced-replay reference, a [S] token buffer;
-        acceptance and the bonus token follow it instead of the live argmax.
+        ref (optional): forced-replay reference, a [S] token buffer ([B, S]
+        for a batch); acceptance and the bonus token follow it instead of
+        the live argmax.
 
         kv_limit: run the round against only the first `kv_limit` KV rows,
         valid whenever committed length + tree + commit window fit inside it
@@ -365,9 +426,21 @@ class EagleEngine:
         ever reads the committed rows. The small cache is a view, so nothing
         is copied back.
         """
+        if state.batched:
+            return self._round_rows(state, ref, kv_limit, batched=True)
+        new, out = self._round_rows(_as_batch(state), None if ref is None else ref[None],
+                                    kv_limit, batched=False)
+        return _as_single(new), RoundOutput(*(x[0] for x in out))
+
+    def _round_rows(self, state: EngineState, ref: Optional[torch.Tensor],
+                    kv_limit: Optional[int], batched: bool):
+        """`_round` over the batch's B rows. `batched` (as in JAX): the
+        compaction kernel runs only when it is False, for one sequence's
+        request held as a batch of one (the host loops of `generate`,
+        `generate_stream` and `generate_fused`)."""
         if kv_limit is not None and kv_limit < state.cache.max_len:
             small = state._replace(cache=slice_rows(state.cache, kv_limit))
-            new_small, out = self._round(small, ref=ref)
+            new_small, out = self._round_rows(small, ref, None, batched)
             merged = merge_rows_window(state.cache, new_small.cache,
                                        state.cache.length,
                                        self.ecfg.tree_size + self._tail)
@@ -375,69 +448,68 @@ class EagleEngine:
         e, tree = self.ecfg, state.tree
         dev = self.device
         Lc = state.length
+        B = Lc.shape[0]
         P = self.path_len
 
         # --- target tree verification (the mask goes in as metadata)
         with record_function("round.verify"):
-            vmask = TreeMaskSpec(tree_mask=tree.mask[None], start=state.cache.length)
-            pos = (Lc + tree.positions)[None]
-            res = transformer.forward(self.params, self.cfg, tree.tokens[None],
+            vmask = TreeMaskSpec(tree_mask=tree.mask, start=state.cache.length)
+            pos = Lc[:, None] + tree.positions
+            res = transformer.forward(self.params, self.cfg, tree.tokens,
                                       state.cache, pos, vmask)
-            logits = transformer.lm_head(self.params, self.cfg, res.hidden[0])
-            feats = _target_feats(res, self.dcfg.version)[0]
+            logits = transformer.lm_head(self.params, self.cfg, res.hidden)   # [B, N, V]
+            feats = _target_feats(res, self.dcfg.version)
 
         # --- acceptance
         with record_function("round.accept"):
             if self.sampled:
-                # the round's draws, in order: acceptance, bonus, draft
+                # each row's draws, in order: acceptance, bonus, draft
                 temp = state.temperature.clamp_min(1e-4)
-                u = uniform(state.gen, (P - 1, tree.children.shape[1]), dev)
+                u = self._draws(state.gen, (P - 1, tree.children.shape[-1]))
                 rule = (accept_mod.accept_sampled if tree.node_probs is None
                         else accept_mod.accept_sampled_true_q)
-                acc = rule(tree, logits, u, e, P, temperature=temp)
+                acc = rule(tree, logits, u, e, P, temperature=temp[:, None, None])
                 bonus = categorical(acc.sample_p,
-                                    uniform(state.gen, acc.sample_p.shape, dev, U_MIN))
+                                    self._draws(state.gen, acc.sample_p.shape[1:], U_MIN))
             elif ref is not None:
-                ref_next = ref[window(Lc + 1, P, ref.shape[0])]
+                ref_next = ref.gather(1, windows(Lc + 1, P, ref.shape[1]))
                 acc = accept_mod.accept_greedy(tree, logits, P, ref_next=ref_next)
-                bonus = ref_next.index_select(0, acc.accept_len.reshape(1))[0]
+                bonus = ref_next.gather(1, acc.accept_len[:, None])[:, 0]
             else:
                 acc = accept_mod.accept_greedy(tree, logits, P)
                 # the vanilla rule, argmax of the final node's logits (path
                 # repeats it past the accepted length): an argmax after the
                 # softmax would tie two logits one ulp apart
-                bonus = torch.argmax(logits.index_select(0, acc.path[-1:])[0])
+                bonus = torch.argmax(_rows(logits, acc.path[:, -1:])[:, 0], dim=-1)
 
         # --- commit tokens + compact KV
         with record_function("round.commit"):
-            path_tokens = tree.tokens[acc.path]
+            path_tokens = tree.tokens.gather(1, acc.path)           # [B, P]
             n_acc = torch.where(state.done, 0, acc.accept_len + 1)
-            S_tok = state.tokens.shape[1]
-            state.tokens[0, window(Lc, P, S_tok)] = path_tokens
-            # the compaction kernel moves raw float rows only: an int8 cache
-            # takes the plain version, which moves payload and scales
-            if e.compact_impl == "pallas" and e.kv_quant == "none":
-                ck, cv = compact_rows(res.cache.k, res.cache.v, acc.path, Lc)
-                cache = KVCache(k=ck, v=cv, length=(Lc + n_acc).reshape(1))
+            state.tokens.scatter_(1, windows(Lc, P, state.tokens.shape[1]), path_tokens)
+            # the compaction kernel moves raw float rows of one sequence: an
+            # int8 cache and a batch take the plain version, which moves
+            # payload and scales
+            if e.compact_impl == "pallas" and e.kv_quant == "none" and not batched:
+                ck, cv = compact_rows(res.cache.k, res.cache.v, acc.path[0], Lc[0])
+                cache = KVCache(k=ck, v=cv, length=Lc + n_acc)
             else:
-                cache = compact_accepted(with_length(res.cache, Lc.reshape(1)),
-                                         acc.path[None], n_acc.reshape(1))
+                cache = compact_accepted(with_length(res.cache, Lc), acc.path, n_acc)
             done = state.done
             if self.eos_token_id is not None:
-                in_window = torch.arange(P, device=dev) < n_acc
-                done = done | ((path_tokens == self.eos_token_id) & in_window).any()
+                in_window = torch.arange(P, device=dev) < n_acc[:, None]
+                done = done | ((path_tokens == self.eos_token_id) & in_window).any(-1)
             # capacity stop: no room for another round's tree + commit window
             done = done | (Lc + n_acc + self._tail + e.tree_size >= self._tgt_len())
 
         # --- next draft tree
         with record_function("round.draft"):
-            ext_tokens = torch.cat([path_tokens[1:],
-                                    torch.zeros(1, dtype=torch.long, device=dev)])
-            ext_tokens = torch.where(torch.arange(P, device=dev) == acc.accept_len,
-                                     bonus, ext_tokens)
-            ext_feats = feats[acc.path]
-            dr = self._draft_round(ext_tokens, ext_feats, n_acc, state.dcache,
-                                   state.temperature, state.gen)
+            ext_tokens = torch.cat([path_tokens[:, 1:],
+                                    torch.zeros((B, 1), dtype=torch.long, device=dev)], 1)
+            ext_tokens = torch.where(torch.arange(P, device=dev) == acc.accept_len[:, None],
+                                     bonus[:, None], ext_tokens)
+            dr = self._draft_round(ext_tokens, _rows(feats, acc.path), n_acc,
+                                   state.dcache, state.temperature, state.gen)
 
         new_state = state._replace(length=Lc + n_acc, cache=cache, dcache=dr.dcache,
                                    tree=dr.tree, done=done)
@@ -446,35 +518,29 @@ class EagleEngine:
                                       live_match=acc.live_match)
 
     def _start(self, prompt_ids, temperature=None, ref=None, seed: int = 0):
-        prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
-        Lp = prompt.shape[1]
-        Tp = self._bucket(Lp)
-        padded = np.zeros((1, Tp), np.int64)
-        padded[0, :Lp] = prompt
-        cache, dcache = self.init_caches()
-        toks = torch.from_numpy(padded).to(self.device)
-        temp, gen = self._request(temperature, seed)
-        with torch.no_grad():
-            state = self._prefill(toks, Lp, cache, dcache, ref=ref, temperature=temp,
-                                  gen=gen)
-        return prompt, Lp, state
+        """One sequence's prefill as a one-sequence state, for `_round`:
+        (prompt [1, Lp], Lp, state). The host loops hold it as a batch of
+        one (`_start_batch`) instead."""
+        lens, state = self._start_batch([prompt_ids], temperature,
+                                        None if ref is None else ref[None], seed)
+        return np.asarray(prompt_ids, np.int64).reshape(1, -1), lens[0], _as_single(state)
 
     def _host_rounds(self, prompt_ids, max_new_tokens, eos_token_id, temperature,
                      seed):
         """The per-round host loop behind `generate` and `generate_stream`:
         yields (all ids so far as a list, this round's accept_len) after every
         round, one sync per round."""
-        prompt, Lp, state = self._start(prompt_ids, temperature, seed=seed)
-        out = list(prompt[0])
+        _, state = self._start_batch([prompt_ids], temperature, None, seed)
+        out = list(np.asarray(prompt_ids, np.int64).ravel())
         new_tokens = 0
         with torch.no_grad():
             while new_tokens < max_new_tokens:
-                state, r = self._round(state)
+                state, r = self._round_rows(state, None, None, batched=False)
                 alen = int(r.accept_len)
                 if alen < 0:      # device-side finish flag tripped
                     break
                 stop = False
-                for t in r.new_tokens[: alen + 1].cpu().numpy():
+                for t in r.new_tokens[0, : alen + 1].cpu().numpy():
                     out.append(int(t))
                     new_tokens += 1
                     if (eos_token_id is not None and t == eos_token_id) or \
@@ -591,19 +657,19 @@ class EagleEngine:
         if force_tokens is not None:
             prompt_row = np.asarray(prompt_ids, np.int64).ravel()
             ref = torch.from_numpy(self._make_ref_buf(
-                force_tokens, prompt_row, max_new_tokens)).to(self.device)
-        prompt, Lp, state = self._start(prompt_ids, temperature, ref=ref, seed=seed)
+                force_tokens, prompt_row, max_new_tokens))[None].to(self.device)
+        (Lp,), state = self._start_batch([prompt_ids], temperature, ref, seed)
         rounds = 0
-        hits = torch.zeros((), dtype=torch.long, device=self.device)
+        hits = torch.zeros((1,), dtype=torch.long, device=self.device)
         with torch.no_grad():
             while True:
                 # the round's one sync: the stop flag and the length together
-                done, length = torch.stack(
+                done, length = torch.cat(
                     [state.done.to(torch.long), state.length]).tolist()
                 if done or length - Lp >= max_new_tokens:
                     break
-                state, r = self._round(state, ref=ref,
-                                       kv_limit=self._kv_limit(length))
+                state, r = self._round_rows(state, ref, self._kv_limit(length),
+                                            batched=False)
                 rounds += 1
                 hits = hits + r.live_match
             toks = state.tokens[0, :length].cpu().numpy()
@@ -614,33 +680,138 @@ class EagleEngine:
             return out, length - Lp, rounds
         return out
 
-    def generate_batch(self, *args, **kwargs):
-        raise NotImplementedError("batched generation is not ported yet")
+    # ------------------------------------------------------------------
+    # batched speculative generation
+    # ------------------------------------------------------------------
 
-    generate_batch_fused = generate_batch
+    def _start_batch(self, prompts, temperature, refs=None, seed: int = 0):
+        """Prefill of a batch: ragged prompts padded to the bucket of the
+        longest. Returns (prompt lengths, the batch's EngineState)."""
+        if len(prompts) == 0:
+            raise ValueError("need at least one prompt")
+        lens = [len(np.asarray(p).ravel()) for p in prompts]
+        Tp = self._bucket(max(lens))
+        padded = np.zeros((len(prompts), Tp), np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, : lens[i]] = np.asarray(p, np.int64).ravel()
+        cache, dcache = self.init_caches(len(prompts))
+        temps, gens = self._requests(temperature, seed, len(prompts))
+        with torch.no_grad():
+            state = self._prefill_rows(
+                torch.from_numpy(padded).to(self.device),
+                torch.tensor(lens, dtype=torch.long, device=self.device), cache, dcache,
+                ref=refs, temperature=temps, gens=gens)
+        return lens, state
+
+    def generate_batch_fused(self, prompts, max_new_tokens: int = 512,
+                             seed: int = 0, temperature=None,
+                             force_tokens=None, log: bool = False):
+        """Batched speculative generation whose host loop syncs once per round
+        (whether any row is live and the longest row's length, one transfer):
+        every round runs all rows, finished ones committing nothing, until
+        each has met its budget, EOS or the capacity stop; each row's
+        overshoot past max_new_tokens is trimmed host-side. With `kv_buckets`
+        a round runs against the bucket of the longest row.
+
+        prompts: list of 1-D token arrays (ragged). temperature: None, one
+        value, or one per row (sampled engines); row i draws from a generator
+        seeded with `seed + i`. force_tokens (greedy engines only): one
+        forced-replay reference per prompt, each starting with its prompt.
+        log=True returns (outs, committed, rounds): per-row committed token
+        counts (untrimmed) and the number of batch rounds."""
+        B = len(prompts)
+        refs = None
+        if force_tokens is not None:
+            if len(force_tokens) != B:
+                raise ValueError("need one force_tokens row per prompt")
+            refs = torch.from_numpy(np.stack([
+                self._make_ref_buf(ft, np.asarray(prompts[i]).ravel(), max_new_tokens,
+                                   label=f"force_tokens[{i}]")
+                for i, ft in enumerate(force_tokens)])).to(self.device)
+        lens, state = self._start_batch(prompts, temperature, refs, seed)
+        L0 = state.length
+        rounds = 0
+        with torch.no_grad():
+            while True:
+                # the round's one sync: any row live, and the longest row
+                live, longest = torch.stack([(~state.done).any().to(torch.long),
+                                             state.length.max()]).tolist()
+                if not live:
+                    break
+                state, _ = self._round(state, ref=refs, kv_limit=self._kv_limit(longest))
+                rounds += 1
+                state = state._replace(done=state.done | (state.length - L0 >= max_new_tokens))
+            toks = state.tokens.cpu().numpy()
+            lengths = state.length.tolist()
+        outs = [self._trim_overshoot(toks[i, : lengths[i]], lens[i], max_new_tokens)
+                for i in range(B)]
+        if log:
+            return outs, [lengths[i] - lens[i] for i in range(B)], rounds
+        return outs
+
+    def generate_batch(self, prompts, max_new_tokens: int = 512, seed: int = 0,
+                       temperature=None):
+        """Batched speculative generation with a per-round host loop and
+        per-row finish flags: every row keeps its own ragged accept lengths
+        and KV length, and finished rows stop committing. Early finish on
+        EOS needs the engine's `eos_token_id`. Each row's in-round overshoot
+        past max_new_tokens is trimmed, so a row equals its one-sequence
+        `generate`. `seed`, `temperature` as in `generate_batch_fused`.
+        Returns a list of np arrays (prompt + completion)."""
+        B = len(prompts)
+        lens, state = self._start_batch(prompts, temperature, None, seed)
+        outs = [list(np.asarray(p, np.int64).ravel()) for p in prompts]
+        new_counts = [0] * B
+        done = [False] * B
+        eos = self.eos_token_id
+        with torch.no_grad():
+            while not all(done):
+                state, r = self._round(state)
+                # one transfer: accept lengths, device finish flags, tokens
+                rows = torch.cat([r.accept_len[:, None], r.done[:, None].to(torch.long),
+                                  r.new_tokens], 1).cpu().numpy()
+                for i in range(B):
+                    if done[i]:
+                        continue
+                    for t in rows[i, 2: rows[i, 0] + 3]:
+                        if new_counts[i] >= max_new_tokens:
+                            done[i] = True
+                            break
+                        outs[i].append(int(t))
+                        new_counts[i] += 1
+                        if eos is not None and t == eos:
+                            done[i] = True
+                            break
+                    if new_counts[i] >= max_new_tokens or rows[i, 1] or \
+                            len(outs[i]) + self.path_len + 1 >= self.ecfg.max_len:
+                        done[i] = True
+        return [np.asarray(o) for o in outs]
 
     # ------------------------------------------------------------------
     # vanilla baseline
     # ------------------------------------------------------------------
 
     def _vanilla_step(self, cache: KVCache, token: torch.Tensor,
-                      kv_limit: Optional[int] = None, temperature=None, gen=None):
+                      kv_limit: Optional[int] = None, temperature=None, gens=None):
+        """One token of the baseline: (cache, next token as a device scalar);
+        temperature [1] and gens (one generator) as `_requests` gives them."""
         if kv_limit is not None and kv_limit < cache.max_len:
             new_small, nxt = self._vanilla_step(slice_rows(cache, kv_limit), token,
-                                                temperature=temperature, gen=gen)
+                                                temperature=temperature, gens=gens)
             # a vanilla step appends one row at `length`, through the view
             return merge_rows_window(cache, new_small, cache.length, 1), nxt
         S = cache.max_len
         pos = cache.length.reshape(1, 1)
         res = transformer.forward(self.params, self.cfg, token.reshape(1, 1),
                                   cache, pos, prefill_mask(1, S, cache.length))
-        logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, 0])
-        return res.cache, self._pick_token(logits, temperature, gen)
+        logits = transformer.lm_head(self.params, self.cfg, res.hidden[:, 0])
+        return res.cache, self._pick_tokens(logits, temperature, gens)[0]
 
     def _vanilla_prefill(self, prompt_ids, temperature, seed):
         """Prompt forward of the baseline: (prompt [1, Lp], Lp, cache, first
-        token as a device scalar, the request's (temperature, generator))."""
-        request = self._request(temperature, seed)
+        token as a device scalar, the request's (temperature [1], generators)
+        from `_requests`)."""
+        request = self._requests(temperature, seed, 1)
         prompt = np.asarray(prompt_ids, np.int64).reshape(1, -1)
         Lp = prompt.shape[1]
         Tp = self._bucket(Lp)
@@ -652,8 +823,8 @@ class EagleEngine:
         res = transformer.forward(self.params, self.cfg, toks, cache,
                                   torch.arange(Tp, device=dev)[None],
                                   prefill_mask(Tp, cache.max_len, cache.length))
-        logits = transformer.lm_head(self.params, self.cfg, res.hidden[0, Lp - 1])
-        token = self._pick_token(logits, *request)
+        logits = transformer.lm_head(self.params, self.cfg, res.hidden[:, Lp - 1])
+        token = self._pick_tokens(logits, *request)[0]
         cache = with_length(res.cache, torch.full((1,), Lp, dtype=torch.long, device=dev))
         return prompt, Lp, cache, token, request
 

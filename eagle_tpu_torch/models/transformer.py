@@ -149,10 +149,9 @@ def _layer(h, lp, cfg: ModelConfig, k_cache, v_cache, cos, sin, mask, start,
         # the tree kernel reads raw float KV; an int8 cache takes the plain
         # dense-mask path with scale-folded reads (as in the JAX package)
         if cfg.attn_impl == "pallas_tree" and ks_cache is None:
-            attn_out = torch.stack([
-                tree_attention(q[b], k_cache[b], v_cache[b], k[b], v[b],
-                               mask.tree_mask[b], mask.start[b])
-                for b in range(B)])
+            # one launch for the whole batch, each row at its own start
+            attn_out = tree_attention(q, k_cache, v_cache, k, v, mask.tree_mask,
+                                      mask.start)
         else:
             dense = tree_mask_full(mask.tree_mask, k_cache.shape[2], mask.start)
             attn_out = attention(q, k_cache, v_cache, dense, ks=ks_cache, vs=vs_cache)

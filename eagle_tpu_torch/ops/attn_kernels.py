@@ -6,8 +6,10 @@ PyTorch versions.
   `tree_attention_ref`, a port of pallas_attn.tree_attention_xla. In bf16
   it runs on tensor cores, split over the prefix in chunks of `TREE_CHUNK`
   keys, and merges the chunks' partials in the same launch; `tree_plan`
-  gives the launch its grid and the padded head width it runs at (any
-  head_dim up to `TREE_MAX_HEAD_DIM`).
+  gives the launch its route, its grid and the padded head width it runs at
+  (any head_dim; past `TREE_MAX_HEAD_DIM` the f32 body in column slices).
+  One launch takes a whole batch, each row with its own
+  prefix length, as the JAX package's batched rounds vmap the kernel.
 - `compact_rows` (csrc/compact_rows.cu) replaces
   pallas_attn.py:_compact_kernel; its plain version is
   ops/kv_cache.compact_accepted (`compact_rows_plain`).
@@ -72,76 +74,104 @@ def _device_int32(x, device) -> torch.Tensor:
 # B1: tree-verify attention
 # ---------------------------------------------------------------------------
 
+def _lift(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
+    """One sequence's operands (q [T, nq, d], ...) as a batch of one; the
+    batched ones as they are. Returns (operands, start [B], batched)."""
+    batched = q.dim() == 4
+    if not batched:
+        q, k_cache, v_cache = q[None], k_cache[None], v_cache[None]
+        k_tree, v_tree, tree_mask = k_tree[None], v_tree[None], tree_mask[None]
+    start = torch.as_tensor(start, device=q.device).reshape(-1)
+    return (q, k_cache, v_cache, k_tree, v_tree, tree_mask), start, batched
+
+
 def tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     """Plain version: the same math as transformer.attention over the
-    concatenated prefix + tree key space.
+    concatenated prefix + tree key space, for B sequences at once.
 
-    q: [T, nq, d]; k/v_cache: [n_kv, S, d] (rows < start attended);
-    k/v_tree: [Tk, n_kv, d]; tree_mask: [T, Tk] bool; start: scalar.
-    Returns [T, nq*d] in q.dtype.
+    q: [B, T, nq, d]; k/v_cache: [B, n_kv, S, d] (row b attends its rows <
+    start[b]); k/v_tree: [B, Tk, n_kv, d]; tree_mask: [B, T, Tk] bool; start:
+    [B]. Returns [B, T, nq*d] in q.dtype. One sequence's operands without the
+    leading B (start a scalar) give [T, nq*d], as `jax.vmap` of the JAX
+    package's function takes them.
     """
-    T, nq, d = q.shape
-    n_kv, S, _ = k_cache.shape
+    (q, k_cache, v_cache, k_tree, v_tree, tree_mask), start, batched = _lift(
+        q, k_cache, v_cache, k_tree, v_tree, tree_mask, start)
+    B, T, nq, d = q.shape
+    n_kv, S = k_cache.shape[1:3]
     g = nq // n_kv
-    start = torch.as_tensor(start, device=q.device).reshape(())
-    mask_p = torch.arange(S, device=q.device) < start                  # [S]
-    qh = q.reshape(T, n_kv, g, d).permute(1, 2, 0, 3).float()          # [h,g,T,d]
-    kt = k_tree.transpose(0, 1).float()                                # [h,Tk,d]
-    vt = v_tree.transpose(0, 1).float()
+    mask_p = torch.arange(S, device=q.device)[None] < start[:, None]      # [B, S]
+    qh = q.reshape(B, T, n_kv, g, d).permute(0, 2, 3, 1, 4).float()      # [b,h,g,T,d]
+    kt = k_tree.transpose(1, 2).float()                                  # [b,h,Tk,d]
+    vt = v_tree.transpose(1, 2).float()
     scale = d ** -0.5
-    sp = torch.einsum("hgtd,hsd->hgts", qh, k_cache.float()) * scale
-    sp = torch.where(mask_p[None, None, None, :], sp, NEG_INF)
-    st = torch.einsum("hgtd,hsd->hgts", qh, kt) * scale
-    st = torch.where(tree_mask[None, None], st, NEG_INF)
+    sp = torch.einsum("bhgtd,bhsd->bhgts", qh, k_cache.float()) * scale
+    sp = torch.where(mask_p[:, None, None, None, :], sp, NEG_INF)
+    st = torch.einsum("bhgtd,bhsd->bhgts", qh, kt) * scale
+    st = torch.where(tree_mask[:, None, None], st, NEG_INF)
     p = torch.softmax(torch.cat([sp, st], dim=-1), dim=-1)
-    v_all = torch.cat([v_cache.float(), vt], dim=1)
-    o = torch.einsum("hgts,hsd->hgtd", p, v_all).to(q.dtype)
-    return o.permute(2, 0, 1, 3).reshape(T, nq * d)
+    v_all = torch.cat([v_cache.float(), vt], dim=2)
+    o = torch.einsum("bhgts,bhsd->bhgtd", p, v_all).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, T, nq * d)
+    return o if batched else o[0]
 
 
 # query rows and prefix keys a block of the bf16 kernel: its geometry, which
 # the launch checks against its own; the padded head widths the kernels are
-# built at (a head_dim runs at the smallest that holds it)
+# built at (a head_dim runs at the smallest that holds it; past the widest,
+# in slices of the widest)
 TREE_ROWS, TREE_CHUNK = 64, 256
 TREE_HEAD_PADS = (64, 128, 256)
 TREE_MAX_HEAD_DIM = TREE_HEAD_PADS[-1]
 
 
-def tree_plan(T: int, nq: int, n_kv: int, S_rows: int, d: int) -> dict:
-    """Grid of the bf16 kernel from host-known numbers only: (row tiles of
-    the T*g query rows of a kv head, prefix chunks + 1 for the tree's own
-    keys, n_kv heads), and `head_pad`, the padded head width both kernels
-    run at for head_dim `d` (zeros past d in shared memory; the partials
-    are laid out by it). S_rows is the cache's row count (a view's, for a
-    row-sliced cache), not its head stride. Prefix chunk c covers keys
-    [c*TREE_CHUNK, min((c+1)*TREE_CHUNK, start)); a chunk with no key below
-    the device's `start` exits at once."""
-    if not 1 <= d <= TREE_MAX_HEAD_DIM:
-        raise ValueError(f"tree_attention: head_dim {d} is not built; the kernels take "
-                         f"head_dim 1 .. {TREE_MAX_HEAD_DIM}")
-    return {"row_tiles": -(-T * (nq // n_kv) // TREE_ROWS),
+def tree_plan(T: int, nq: int, n_kv: int, S_rows: int, d: int, B: int = 1) -> dict:
+    """Which kernel runs B1 and its grid, from host-known numbers only.
+
+    `head_pad` is the padded head width the kernels run at (zeros past d in
+    shared memory; the partials are laid out by it), `slices` the number of
+    head_pad-column slices of the output (1 up to TREE_MAX_HEAD_DIM). The
+    bf16 kernel's grid is (row tiles of the T*g query rows of a kv head,
+    prefix chunks + 1 for the tree's own keys, B * n_kv). S_rows is the
+    cache's row count (a view's, for a row-sliced cache), not its head
+    stride. Prefix chunk c covers keys [c*TREE_CHUNK, min((c+1)*TREE_CHUNK,
+    start)); a chunk with no key below a row's `start` exits at once.
+
+    Wider heads take the "wide" route in either dtype: the f32 kernel with
+    Q.K summed over the head in passes of head_pad columns and grid.z =
+    `slices`, each block writing head_pad output columns."""
+    if d < 1:
+        raise ValueError(f"tree_attention: head_dim {d} (must be >= 1)")
+    if B < 1:
+        raise ValueError(f"tree_attention: batch {B} (must be >= 1)")
+    pad = next((p for p in TREE_HEAD_PADS if d <= p), TREE_MAX_HEAD_DIM)
+    return {"route": "wide" if d > TREE_MAX_HEAD_DIM else "tiled", "batch": B,
+            "row_tiles": -(-T * (nq // n_kv) // TREE_ROWS),
             "chunks": -(-S_rows // TREE_CHUNK),
-            "head_pad": next(p for p in TREE_HEAD_PADS if d <= p)}
+            "head_pad": pad, "slices": -(-d // pad)}
 
 
-# CUDA stream -> the bf16 kernel's merge counters, one per (kv head, row
-# tile): zero, and left zero by every launch
+# CUDA stream -> the bf16 kernel's merge counters, one per (batch row, kv
+# head, row tile): zero, and left zero by every launch
 _COUNTERS: dict = {}
 
-_TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+_TREE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
-    """Fused tree-verify attention for one sequence (layouts as
-    `tree_attention_ref`). CUDA tensors run csrc/tree_attention.cu; CPU
-    tensors run the plain version."""
+    """Fused tree-verify attention for a batch of sequences, in one launch
+    (layouts as `tree_attention_ref`: batched, or one sequence's without the
+    leading B). CUDA tensors run csrc/tree_attention.cu; CPU tensors run the
+    plain version."""
     if q.device.type == "cpu":
         return tree_attention_ref(q, k_cache, v_cache, k_tree, v_tree,
                                   tree_mask, start)
     _require_cuda("tree_attention", q)
-    T, nq, d = q.shape
-    n_kv, S, d2 = k_cache.shape
-    Tk = k_tree.shape[0]
+    (q, k_cache, v_cache, k_tree, v_tree, tree_mask), st, batched = _lift(
+        q, k_cache, v_cache, k_tree, v_tree, tree_mask, start)
+    B, T, nq, d = q.shape
+    _, n_kv, S, d2 = k_cache.shape
+    Tk = k_tree.shape[1]
     dev = q.device
     tensors = (q, k_cache, v_cache, k_tree, v_tree, tree_mask)
     if any(t.device != dev for t in tensors):
@@ -152,15 +182,16 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     if tree_mask.dtype != torch.bool:
         raise TypeError("tree_attention: tree_mask must be bool")
     if (d2 != d or nq % n_kv != 0
-            or v_cache.shape != k_cache.shape
-            or k_tree.shape != (Tk, n_kv, d) or v_tree.shape != k_tree.shape
-            or tree_mask.shape != (T, Tk)):
+            or k_cache.shape[0] != B or v_cache.shape != k_cache.shape
+            or k_tree.shape != (B, Tk, n_kv, d) or v_tree.shape != k_tree.shape
+            or tree_mask.shape != (B, T, Tk) or st.shape != (B,)):
         raise ValueError(
             f"tree_attention: bad shapes q{tuple(q.shape)} "
             f"k_cache{tuple(k_cache.shape)} k_tree{tuple(k_tree.shape)} "
-            f"mask{tuple(tree_mask.shape)}")
+            f"mask{tuple(tree_mask.shape)} start{tuple(st.shape)}")
     if not all(t.is_contiguous() for t in (q, k_tree, v_tree, tree_mask)):
         raise ValueError("tree_attention: inputs must be contiguous")
+    plan = tree_plan(T, nq, n_kv, S, d, B)
     head_stride = _row_stride(k_cache, d, "tree_attention")
     if _row_stride(v_cache, d, "tree_attention") != head_stride:
         raise ValueError("tree_attention: k_cache and v_cache must share one layout")
@@ -170,28 +201,27 @@ def tree_attention(q, k_cache, v_cache, k_tree, v_tree, tree_mask, start):
     # temporaries passed by pointer (st, the partials, p32 below) may be freed
     # when the wrapper returns: the caching allocator reuses their memory only
     # for work queued later on the same stream, so the kernel still has them
-    st = _device_int32(start, dev)
-    out = torch.empty((T, nq * d), dtype=q.dtype, device=dev)
-    plan = tree_plan(T, nq, n_kv, S, d)
-    slots = n_kv * plan["row_tiles"] * (plan["chunks"] + 1)
-    if q.dtype == torch.bfloat16:
-        part_acc = torch.empty(slots * TREE_ROWS * plan["head_pad"], dtype=torch.float32,
-                               device=dev)
+    st = st.to(device=dev, dtype=torch.int32)
+    out = torch.empty((B, T, nq * d), dtype=q.dtype, device=dev)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_tree.data_ptr(),
+            v_tree.data_ptr(), tree_mask.data_ptr(), st.data_ptr(), out.data_ptr())
+    if q.dtype == torch.bfloat16 and plan["route"] == "tiled":
+        slots = B * n_kv * plan["row_tiles"] * (plan["chunks"] + 1)
+        part_acc = torch.empty(slots * TREE_ROWS * plan["head_pad"],
+                               dtype=torch.float32, device=dev)
         part_ml = torch.empty(slots * 2 * TREE_ROWS, dtype=torch.float32, device=dev)
         counters = _launch.zeroed_counters(_COUNTERS, torch.cuda.current_stream(dev),
-                                           n_kv * plan["row_tiles"])
+                                           B * n_kv * plan["row_tiles"])
         scratch = (part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr())
     else:
         scratch = (None, None, None)
     fn = _lib("tree_attention", _TREE_ARGS)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             k_tree.data_ptr(), v_tree.data_ptr(), tree_mask.data_ptr(),
-             st.data_ptr(), out.data_ptr(), *scratch, _DTYPE_CODE[q.dtype], T, Tk,
-             nq, n_kv, S, head_stride, d, plan["head_pad"], TREE_ROWS, TREE_CHUNK,
-             plan["row_tiles"], plan["chunks"], d ** -0.5, _stream())
+    err = fn(*ptrs, *scratch, _DTYPE_CODE[q.dtype], B, T, Tk, nq, n_kv, S, head_stride,
+             d, plan["head_pad"], plan["slices"], TREE_ROWS, TREE_CHUNK, plan["row_tiles"],
+             plan["chunks"], d ** -0.5, _stream())
     _check_launch("tree_attention", err)
     LAUNCHES["tree_attention"] += 1
-    return out
+    return out if batched else out[0]
 
 
 # ---------------------------------------------------------------------------

@@ -74,25 +74,38 @@ def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_len: int,
     )
 
 
-def window(start: torch.Tensor, n: int, size: int) -> torch.Tensor:
-    """Row indices [start, start + n) with start clamped to [0, size - n]."""
+def windows(start: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """Row indices [start_b, start_b + n) of every sequence, start [B] →
+    [B, n], each start clamped to [0, size - n]."""
     st = start.to(torch.long).clamp(0, size - n)
-    return st + torch.arange(n, device=start.device)
+    return st[:, None] + torch.arange(n, device=start.device)
+
+
+def window(start: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """`windows` of one sequence: a scalar start → [n]."""
+    return windows(start.reshape(1), n, size)[0]
+
+
+def _scatter_rows(cache: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor) -> None:
+    """cache[b, :, idx[b, i]] = rows[b, :, i] for every b and i, in place, in
+    one scatter. cache: [B, n_kv, S(, d)]; rows: [B, n_kv, n(, d)]; idx:
+    [B, n]."""
+    shape = (rows.shape[0], rows.shape[1], idx.shape[1]) + rows.shape[3:]
+    full = idx.reshape(idx.shape[0], 1, idx.shape[1], *([1] * (rows.dim() - 3)))
+    cache.scatter_(2, full.expand(shape), rows.to(cache.dtype))
 
 
 def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  start: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write T new rows at per-sequence offsets, in place.
+    """Write T new rows at per-sequence offsets, in place, one scatter for
+    the whole batch.
 
     k_cache/v_cache: [B, n_kv, S, d]; k_new/v_new: [B, T, n_kv, d]; start: [B].
     """
-    B, T = k_new.shape[:2]
-    S = k_cache.shape[2]
-    for b in range(B):
-        idx = window(start[b], T, S)
-        k_cache[b].index_copy_(1, idx, k_new[b].transpose(0, 1).to(k_cache.dtype))
-        v_cache[b].index_copy_(1, idx, v_new[b].transpose(0, 1).to(v_cache.dtype))
+    idx = windows(start, k_new.shape[1], k_cache.shape[2])
+    _scatter_rows(k_cache, k_new.transpose(1, 2), idx)
+    _scatter_rows(v_cache, v_new.transpose(1, 2), idx)
     return k_cache, v_cache
 
 
@@ -117,28 +130,36 @@ def update_layer_q(k_cache: torch.Tensor, v_cache: torch.Tensor,
     kq, ks = quantize_kv_rows(k_new)        # [B, T, n_kv, d], [B, T, n_kv]
     vq, vs = quantize_kv_rows(v_new)
     update_layer(k_cache, v_cache, kq, vq, start)
-    B, T = ks.shape[:2]
-    S = ks_cache.shape[2]
-    for b in range(B):
-        idx = window(start[b], T, S)
-        ks_cache[b].index_copy_(1, idx, ks[b].transpose(0, 1))
-        vs_cache[b].index_copy_(1, idx, vs[b].transpose(0, 1))
+    idx = windows(start, ks.shape[1], ks_cache.shape[2])
+    _scatter_rows(ks_cache, ks.transpose(1, 2), idx)
+    _scatter_rows(vs_cache, vs.transpose(1, 2), idx)
     return k_cache, v_cache, ks_cache, vs_cache
 
 
+def _move_rows(tensors, path: torch.Tensor, start: torch.Tensor) -> None:
+    """Move rows start[b] + path[b, i] → start[b] + i (i < P) of every
+    sequence b, layer and kv head of each [L, B, n_kv, S(, d)] tensor (K/V
+    payloads or int8 row scales), in place: per tensor one gather of all the
+    rows (a copy, since source and destination windows overlap) and one
+    scatter."""
+    S = tensors[0].shape[3]
+    P = path.shape[1]
+    start = start.to(torch.long)
+    src = (start[:, None] + path.to(torch.long)).clamp(0, S - 1)      # [B, P]
+    dst = windows(start, P, S)
+    for t in tensors:
+        lead = t.shape[0]
+        flat = t.view(lead * t.shape[1], *t.shape[2:])    # layers x sequences
+        rows = _gather_rows(flat, src.repeat(lead, 1))
+        _scatter_rows(flat, rows, dst.repeat(lead, 1))
+
+
 def compact_rows_plain(k: torch.Tensor, v: torch.Tensor, path: torch.Tensor,
-                       start: torch.Tensor, b: int = 0) -> None:
-    """Move rows start + path[i] → start + i (i < P) of sequence b in every
-    layer and kv head, in place: of [L, B, n_kv, S, d] payloads, or of
-    [L, B, n_kv, S] row scales. All P rows are gathered before any is
-    written, since source and destination windows overlap."""
-    S = k.shape[3]
-    P = path.shape[0]
-    src = (start.to(torch.long) + path.to(torch.long)).clamp(0, S - 1)
-    dst = window(start, P, S)
-    for t in (k, v):
-        rows = t[:, b].index_select(2, src)          # [L, n_kv, P(, d)] copy
-        t[:, b].index_copy_(2, dst, rows)
+                       start: torch.Tensor) -> None:
+    """The compaction kernel's plain version: move rows start + path[i] →
+    start + i (i < P) of k and v [L, 1, n_kv, S, d] in every layer and kv
+    head, in place."""
+    _move_rows((k, v), path[None], start.reshape(1))
 
 
 def compact_accepted(cache: KVCache, path: torch.Tensor,
@@ -146,17 +167,23 @@ def compact_accepted(cache: KVCache, path: torch.Tensor,
     """Compact the accepted tree branch to the contiguous tail of the cache.
 
     After a tree-verify forward wrote the tree at offset `length`, rows
-    `length + path[b, i]` move to `length + i`. path: [B, P] node indices;
-    accept_len: [B]. Returns the same buffers with length += accept_len.
-    This is the plain version of the compaction kernel
-    (ops/attn_kernels.compact_rows). An int8 cache moves its quantized
-    payload and its row scales verbatim (lossless).
+    `length + path[b, i]` move to `length + i` (i < P), for every sequence
+    and layer at once. path: [B, P] node indices; accept_len: [B]. Returns
+    the same buffers with length += accept_len. For one sequence this is
+    the plain version of the compaction kernel (ops/attn_kernels.compact_rows);
+    a batch always takes it, as in the JAX package. An int8 cache moves its
+    quantized payload and its row scales verbatim (lossless).
     """
-    for b in range(path.shape[0]):
-        compact_rows_plain(cache.k, cache.v, path[b], cache.length[b], b)
-        if cache.ks is not None:
-            compact_rows_plain(cache.ks, cache.vs, path[b], cache.length[b], b)
+    scales = (cache.ks, cache.vs) if cache.ks is not None else ()
+    _move_rows((cache.k, cache.v) + scales, path, cache.length)
     return cache._replace(length=cache.length + accept_len.to(torch.long))
+
+
+def _gather_rows(cache: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """cache[b, :, idx[b, i]] → [B, n_kv, n(, d)], a copy."""
+    shape = (cache.shape[0], cache.shape[1], idx.shape[1]) + cache.shape[3:]
+    full = idx.reshape(idx.shape[0], 1, idx.shape[1], *([1] * (cache.dim() - 3)))
+    return cache.gather(2, full.expand(shape))
 
 
 def with_length(cache: KVCache, length: torch.Tensor) -> KVCache:

@@ -1,5 +1,8 @@
 """Tree-topology math on tensors: a [N] parent vector determines the tree,
 and every derived structure is computed with fixed-shape ops on the device.
+Each function also takes a batch of trees, parents [B, N] (the JAX
+package's batched rounds vmap them); a `Tree` then has a leading B on every
+field.
 
 Conventions (as in the JAX package): node 0 is the root, parents[0] == 0,
 parents[i] < i for i > 0. Index tensors are int64.
@@ -15,6 +18,7 @@ import torch.nn.functional as F
 
 
 class Tree(NamedTuple):
+    """One tree, or a batch of B trees with a leading B on every field."""
     tokens: torch.Tensor     # [N] target-vocab token per node (node 0 = root)
     parents: torch.Tensor    # [N] parent index; parents[0] = 0
     mask: torch.Tensor       # [N, N] bool ancestor-or-self
@@ -24,16 +28,21 @@ class Tree(NamedTuple):
 
     @property
     def num_nodes(self) -> int:
-        return self.tokens.shape[0]
+        return self.tokens.shape[-1]
+
+    def map(self, fn) -> "Tree":
+        """The tree with `fn` applied to every tensor field."""
+        return Tree(*(None if x is None else fn(x) for x in self))
 
 
 def ancestor_mask(parents: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """[N] parents → [N, N] ancestor-or-self bool, by repeated squaring of
-    the parent-step relation (fp32 products of 0/1 entries are exact)."""
-    N = parents.shape[0]
+    """[.., N] parents → [.., N, N] ancestor-or-self bool, by repeated
+    squaring of the parent-step relation (fp32 products of 0/1 entries are
+    exact)."""
+    N = parents.shape[-1]
     eye = torch.eye(N, dtype=torch.bool, device=parents.device)
     step = eye | F.one_hot(parents.to(torch.long), N).bool()
-    step[0] = eye[0]
+    step[..., 0, :] = eye[0]
     closure = step
     hops = 1
     while hops < max_depth:
@@ -44,23 +53,35 @@ def ancestor_mask(parents: torch.Tensor, max_depth: int) -> torch.Tensor:
 
 
 def depths_from_mask(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum(dim=1) - 1
+    return mask.sum(dim=-1) - 1
+
+
+def sibling_rank(parents: torch.Tensor) -> torch.Tensor:
+    """[.., N] parents → each node's rank among its parent's children, in
+    node-index order (0 for the root)."""
+    N = parents.shape[-1]
+    idx = torch.arange(N, device=parents.device)
+    onehot = F.one_hot(parents, N) * (idx > 0)[:, None]
+    rank = torch.cumsum(onehot, dim=-2) - onehot         # exclusive cumsum
+    return torch.gather(rank, -1, parents[..., None])[..., 0]
 
 
 def children_table(parents: torch.Tensor, k: int) -> torch.Tensor:
-    """[N] parents → [N, k] children ids (-1 padded), in node-index order."""
-    N = parents.shape[0]
+    """[.., N] parents → [.., N, k] children ids (-1 padded), in node-index
+    order."""
+    N = parents.shape[-1]
     parents = parents.to(torch.long)
     idx = torch.arange(N, device=parents.device)
-    onehot = F.one_hot(parents, N) * (idx > 0)[:, None]
-    rank = torch.cumsum(onehot, dim=0) - onehot          # exclusive cumsum
-    sib_rank = torch.gather(rank, 1, parents[:, None])[:, 0]
+    sib_rank = sibling_rank(parents)
     valid = (idx > 0) & (sib_rank < k)
-    children = torch.full((N, k + 1), -1, dtype=torch.long, device=parents.device)
-    col = torch.where(valid, sib_rank, k)
+    rows = parents.reshape(-1, N)
+    children = torch.full((rows.shape[0], N, k + 1), -1, dtype=torch.long,
+                          device=parents.device)
+    col = torch.where(valid, sib_rank, k).reshape(rows.shape)
+    tree = torch.arange(rows.shape[0], device=parents.device)[:, None]
     # invalid rows all write -1 into the dump column k, sliced off below
-    children[parents, col] = torch.where(valid, idx, -1)
-    return children[:, :k]
+    children[tree, rows, col] = torch.where(valid, idx, -1).reshape(rows.shape)
+    return children[..., :k].reshape(parents.shape + (k,))
 
 
 def paths_from_mask(mask: torch.Tensor, depths: torch.Tensor, max_path: int) -> torch.Tensor:
@@ -76,6 +97,7 @@ def paths_from_mask(mask: torch.Tensor, depths: torch.Tensor, max_path: int) -> 
 
 def build_tree(tokens: torch.Tensor, parents: torch.Tensor, k: int, max_depth: int,
                node_probs: Optional[torch.Tensor] = None) -> Tree:
+    """The Tree of `tokens` / `parents` ([N], or [B, N] for a batch)."""
     mask = ancestor_mask(parents, max_depth)
     return Tree(tokens=tokens.to(torch.long), parents=parents.to(torch.long),
                 mask=mask, positions=depths_from_mask(mask),

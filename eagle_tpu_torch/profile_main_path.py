@@ -1,7 +1,7 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
     python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8|hd64 ...]
-        [--temperature T] [--out DIR]
+        [--temperature T] [--batch B] [--out DIR]
 
 Builds a full-width engine (eagle_tpu_torch/full_width.py: the bf16 path;
 `int4`, the int4 serving path: w4a8 target, int4 draft, fused draft scoring;
@@ -24,6 +24,12 @@ engine at temperature T with top_p 0.9 and the path's sampled acceptance
 (SAMPLED_ACCEPTANCE: the static tree's sampled candidates and the int4
 path's two-pass dynamic drafting take the true-q rule, the other dynamic
 trees the q(x) = 1 rule), so the profile shows what sampling adds to a round.
+With --batch B > 1 the rounds are batched rounds of B sequences
+(`_start_batch`: prompts of CONTEXT, CONTEXT - 37, ... tokens, so each row has
+its own prefix length), and the result also gives the host syncs a round
+makes (counted under torch's sync debug mode "warn" over two rounds) and
+tokens per second of the batch at τ = 1 (B tokens a round); the vanilla
+step stays the one-sequence step.
 Writes the profiler tables to DIR/profile_main_path[_PATH].txt (default
 profile_out/) and prints one JSON line of results per path. Needs CUDA.
 """
@@ -35,6 +41,7 @@ import json
 import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -62,48 +69,78 @@ def _dev_self(evt) -> float:
             or getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
-    """Time and profile ROUNDS rounds of `eng`; writes the profiler tables and
-    returns the results."""
+def _start(eng, prompt, batch: int):
+    """A one-sequence request held as a batch of one (as `generate_fused`
+    holds it), or a batch of prompts shortened by 37 tokens a row."""
+    return eng._start_batch([prompt[: len(prompt) - 37 * i] for i in range(batch)], None)[1]
+
+
+def _syncs_per_round(step, state, rounds: int = 2) -> float:
+    """Host syncs a round makes: torch's sync debug mode "warn" warns once
+    per synchronising op (its own notice that the mode is a prototype is
+    not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(rounds):
+                state, _ = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught) / rounds
+
+
+def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dict:
+    """Time and profile ROUNDS rounds of `eng` (batched rounds of `batch`
+    sequences when batch > 1); writes the profiler tables and returns the
+    results."""
     # a bucketed engine runs each round against the bucket of its length; the
     # CONTEXT and the few rounds here stay inside one bucket
     kv_limit = eng._kv_limit(CONTEXT + (ROUNDS + 3) * eng.path_len)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, eng.cfg.vocab_size, CONTEXT)
+    # the round as the host loops run it: B2 for one sequence, not for a batch
+    step = lambda state: eng._round_rows(state, None, kv_limit, batched=batch > 1)
 
     # host-clock step times (each ends in a sync)
-    _, _, state = eng._start(prompt, None)
+    state = _start(eng, prompt, batch)
     with torch.no_grad():
         for _ in range(3):
-            state, _ = eng._round(state, kv_limit=kv_limit)
+            state, _ = step(state)
         torch.cuda.synchronize()
         round_ms = []
         for _ in range(ROUNDS):
             t0 = time.perf_counter()
-            state, _ = eng._round(state, kv_limit=kv_limit)
+            state, _ = step(state)
             torch.cuda.synchronize()
             round_ms.append((time.perf_counter() - t0) * 1e3)
-        cache = state.cache
-        token = state.tree.tokens[0]
+        syncs = _syncs_per_round(step, state)
+        single = state if batch == 1 else _start(eng, prompt, 1)
+        del state
+        cache = single.cache
+        token = single.tree.tokens[0, 0]
         step_ms = []
         for i in range(ROUNDS + 3):
             t0 = time.perf_counter()
-            cache, token = eng._vanilla_step(cache, token, None, state.temperature,
-                                             state.gen)
+            cache, token = eng._vanilla_step(cache, token, None, single.temperature,
+                                             single.gen)
             torch.cuda.synchronize()
             if i >= 3:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
 
+        del single, cache
         # profiled window of speculative rounds
-        _, _, state = eng._start(prompt, None)
+        state = _start(eng, prompt, batch)
         for _ in range(3):
-            state, _ = eng._round(state, kv_limit=kv_limit)
+            state, _ = step(state)
         torch.cuda.synchronize()
         ak.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(ROUNDS):
-                state, _ = eng._round(state, kv_limit=kv_limit)
+                state, _ = step(state)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
 
@@ -129,7 +166,7 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
     top = sorted(kernels, key=_dev_self, reverse=True)[:14]
     round_med = float(np.median(round_ms))
     result = {
-        "card": card, "path": path, "context": CONTEXT,
+        "card": card, "path": path, "context": CONTEXT, "batch": batch,
         "temperature": eng.ecfg.temperature, "acceptance": eng.ecfg.acceptance,
         "rounds": n, "tree_nodes": eng.ecfg.tree_size, "kv_limit": kv_limit,
         "round_ms_median": round_med,
@@ -139,6 +176,8 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
         "device_idle_share_profiled_window": 1.0 - busy_ms / window_ms,
         "device_idle_share_unprofiled_round": 1.0 - busy_ms / n / round_med,
         "kernel_launches_per_round": sum(e.count for e in launches) / n,
+        "host_syncs_per_round": syncs,
+        "batch_tokens_per_s_at_tau_1": batch * 1e3 / round_med,
         "spans": spans,
         "top_kernels_ms_per_round": {e.key[:80]: _dev_self(e) / 1e3 / n
                                      for e in top},
@@ -146,7 +185,8 @@ def profile_path(path: str, eng, card: str, out_dir: str) -> dict:
     }
     os.makedirs(out_dir, exist_ok=True)
     suffix = ("" if path == "bf16" else "_" + path) + (
-        f"_t{eng.ecfg.temperature:g}" if eng.sampled else "")
+        f"_t{eng.ecfg.temperature:g}" if eng.sampled else "") + (
+        f"_b{batch}" if batch > 1 else "")
     with open(os.path.join(out_dir, f"profile_main_path{suffix}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n\n")
@@ -159,6 +199,7 @@ def main() -> None:
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--path", choices=PATHS, nargs="+", default=["bf16"])
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--batch", type=int, default=1)
     args = ap.parse_args()
     paths = args.path
     if not torch.cuda.is_available():
@@ -183,7 +224,8 @@ def main() -> None:
         if args.temperature > 0:
             eng = eng._sibling(temperature=args.temperature, top_p=SAMPLED_TOP_P,
                                acceptance=SAMPLED_ACCEPTANCE[path])
-        print(json.dumps(profile_path(path, eng, smi.stdout.strip(), args.out)), flush=True)
+        print(json.dumps(profile_path(path, eng, smi.stdout.strip(), args.out, args.batch)),
+              flush=True)
 
 
 if __name__ == "__main__":

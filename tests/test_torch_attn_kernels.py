@@ -163,18 +163,23 @@ def test_head_dim_64_matches_jax_kernel(start):
 
 
 def test_tree_plan_takes_head_dims_64_and_128():
-    """Every head_dim from 1 to 256 is taken (64 and 128 among them), at the
-    smallest padded width of 64, 128 and 256 that holds it; the grid does
-    not depend on it; past 256 the plan refuses before a launch."""
+    """Every head_dim from 1 to 256 is taken (64 and 128 among them) by the
+    tiled kernels, at the smallest padded width of 64, 128 and 256 that
+    holds it, in one column slice; the grid does not depend on it; past 256
+    the plan names the wide route, at 256 columns in as many slices as the
+    head needs; head_dim 0 is refused before a launch."""
     base = ak.tree_plan(61, 32, 8, 2176, 128)
     assert ak.TREE_HEAD_PADS == (64, 128, 256) and ak.TREE_MAX_HEAD_DIM == 256
+    assert base["route"] == "tiled"
     for d in range(1, 257):
         plan = ak.tree_plan(61, 32, 8, 2176, d)
         pad = 64 if d <= 64 else 128 if d <= 128 else 256
         assert plan == dict(base, head_pad=pad), d
-    for d in (0, 257, 512):
-        with pytest.raises(ValueError, match="head_dim 1 .. 256"):
-            ak.tree_plan(61, 32, 8, 2176, d)
+    for d, slices in ((257, 2), (320, 2), (512, 2), (513, 3)):
+        assert ak.tree_plan(61, 32, 8, 2176, d) == dict(
+            base, route="wide", head_pad=256, slices=slices)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        ak.tree_plan(61, 32, 8, 2176, 0)
 
 
 @pytest.mark.parametrize("d,start", [(80, 300), (96, 0), (256, 520), (100, 257), (40, 600)])

@@ -160,12 +160,67 @@ def test_tree_attention_kernel_other_head_dims(dev, dtype, d):
 
 
 def test_tree_attention_kernel_refuses_other_head_dims(dev):
+    """Every head_dim >= 1 runs (past 256 on the wide route); an empty head
+    and a batch whose starts do not match its rows are refused before a
+    launch."""
     r = lambda *s: torch.zeros(s, device=dev, dtype=torch.bfloat16)
-    for d in (257, 320):
-        with pytest.raises(ValueError, match="head_dim 1 .. 256"):
-            ak.tree_attention(r(4, 4, d), r(2, 64, d), r(2, 64, d), r(4, 2, d), r(4, 2, d),
-                              torch.ones((4, 4), dtype=torch.bool, device=dev),
-                              torch.tensor(8, device=dev))
+    mask = torch.ones((4, 4), dtype=torch.bool, device=dev)
+    before = ak.LAUNCHES["tree_attention"]
+    with pytest.raises(ValueError, match="head_dim 0"):
+        ak.tree_attention(r(4, 4, 0), r(2, 64, 0), r(2, 64, 0), r(4, 2, 0), r(4, 2, 0),
+                          mask, torch.tensor(8, device=dev))
+    with pytest.raises(ValueError, match="bad shapes"):
+        ak.tree_attention(r(2, 4, 4, 320), r(2, 2, 64, 320), r(2, 2, 64, 320),
+                          r(2, 4, 2, 320), r(2, 4, 2, 320), mask.expand(2, 4, 4).contiguous(),
+                          torch.tensor([8, 9, 10], device=dev))
+    assert ak.LAUNCHES["tree_attention"] == before
+
+
+def _batch_inputs(dev, dtype, B, T, d, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    rng = np.random.default_rng(seed)
+    masks = torch.stack([ancestor_mask(torch.tensor(
+        [0] + [int(rng.integers(0, i)) for i in range(1, T)], device=dev), T)
+        for _ in range(B)]).contiguous()
+    return r(B, T, 32, d), r(B, 8, S, d), r(B, 8, S, d), r(B, T, 8, d), r(B, T, 8, d), masks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", [2176, 2048])
+def test_tree_attention_kernel_batched(dev, dtype, view):
+    """One launch for B = 4 rows at starts 0, 300, 1024 and 2000 (a chunk
+    live for one row is empty for another), on the full cache and on a
+    row-sliced view of it: within the B1 tolerances of the batched plain
+    version, each row bit-identical to a launch for that row alone, and the
+    merge counters left zero."""
+    q, kc, vc, kt, vt, tm = _batch_inputs(dev, dtype, 4, 61, 128, 2176, seed=view)
+    args = (q, kc[:, :, :view], vc[:, :, :view], kt, vt, tm)
+    st = torch.tensor([0, 300, 1024, 2000], device=dev)
+    before = ak.LAUNCHES["tree_attention"]
+    got = ak.tree_attention(*args, st)
+    assert ak.LAUNCHES["tree_attention"] == before + 1 and got.shape == (4, 61, 32 * 128)
+    _b1_check(got, args, st)
+    for b in range(4):
+        one = ak.tree_attention(*(a[b] for a in args), st[b])
+        assert torch.equal(got[b], one), b
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in ak._COUNTERS.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512])
+def test_tree_attention_kernel_wide_head(dev, dtype, d):
+    """head_dim > 256 (the wide route): B = 2, T = 61, 32 q / 8 kv heads,
+    starts around a chunk edge of a 1024-row view and on the full cache,
+    within the B1 tolerances."""
+    q, kc, vc, kt, vt, tm = _batch_inputs(dev, dtype, 2, 61, d, 2176, seed=d)
+    assert ak.tree_plan(61, 32, 8, 1024, d, B=2)["route"] == "wide"
+    for view, starts in ((1024, [(0, 255), (256, 1023)]), (2176, [(2176, 1500)])):
+        args = (q, kc[:, :, :view], vc[:, :, :view], kt, vt, tm)
+        for pair in starts:
+            st = torch.tensor(pair, device=dev)
+            _b1_check(ak.tree_attention(*args, st), args, st)
 
 
 def test_tree_attention_merge_counters_left_zero(dev):

@@ -119,10 +119,9 @@ def test_unported_engine_options_raise(change, error):
 
 def test_unported_entry_points_raise():
     pe = port_engine(make_engine(1))
+    # batched generation is ported (tests/test_torch_batched*.py); a mesh is not
     with pytest.raises(NotImplementedError):
-        pe.generate_batch([PROMPT, PROMPT])
-    with pytest.raises(NotImplementedError):
-        pe.generate_batch_fused([PROMPT, PROMPT])
+        EagleEngine.from_pretrained("base", "draft", mesh=object(), device="cpu")
     window = dataclasses.replace(pe.cfg, sliding_window=16)
     with pytest.raises(NotImplementedError):
         EagleEngine(pe.params, window, pe.dparams, pe.dcfg, EngineConfig(), device="cpu")
