@@ -20,7 +20,9 @@ Phases (any failure exits non-zero):
      attention also at head_dim 80, 96 and 256, over a batch of 4 rows in one
      launch (starts 0, 300, 1024, 2000, the full cache and a 2048-row view,
      each row bit-identical to its own launch) and past head_dim 256 on the
-     wide route (320, 512); the nine ablation variants
+     wide route (320, 512); the f32 route row-exact: verify rows of three
+     batched trees bit-identical to one-token steps at start + depth, a
+     300-row prefill to its chunks of 64 and 37; the nine ablation variants
      of the w4a8 body bit for bit at M = 5, 32, 61, 512, every block_n of
      the probe's sweeps, groups 4 to 1024 and a ragged N, `i32_storage`
      against B3's kernel alone), and time kernel /
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero):
      scorer: wrapper, kernel alone and the unfused chain the drafter runs
      without fused scoring, at M = 1, 10, 32 and past them, and at a batch
      of 4's M = 4 and 40; B3/B4 also at M = 244; tree attention batched
-     beside one SDPA call with a dense batched mask; the ablation variants
+     beside one SDPA call with a dense batched mask; the f32 route at the
+     main path's shape beside one f32 SDPA call; the ablation variants
      beside one bf16 torch.mm at M = 32, 61 and 512);
   3. exactness: small fp32 models with the kernels on: greedy speculative
      output (generate, generate_fused) equals generate_vanilla, for the
@@ -44,8 +47,14 @@ Phases (any failure exits non-zero):
      "error"); batched (B = 3 ragged prompts), every row of
      generate_batch_fused equals its generate_vanilla for the dense, int4,
      static-tree, kv_buckets and int8-KV engines, with forced replay and
-     EOS per row, B1 once per layer and round and no B2, and a batched
-     round waits on no host sync; the sampled
+     EOS per row, B1 once per layer for the prefill and once per layer
+     and round and no B2, and a batched round waits on no host sync; every
+     row of every engine is held, the int4 rows of the prompts where fault
+     C6 showed included; sessions and servers (fp32, dense and int4): a
+     3-turn EagleSession, EagleServer over 5 staggered requests (async)
+     and PagedEagleServer (chunked prefill, a pool that forces a
+     preemption, a 200-token prefix adopted) equal every request's
+     generate_vanilla; the sampled
      acceptance rules over 200k trials on the card's generator follow the
      target's first- and second-token distributions;
   4. the paths at full width (Llama-3.1-8B widths, EAGLE-3 draft, seeded
@@ -65,7 +74,12 @@ Phases (any failure exits non-zero):
      "true_q_dynamic". Batched (B = 4, prompts of 24, 311, 977 and 150
      tokens, 128 new tokens each, generate_batch_fused) on the bf16 and
      int4 paths: aggregate tok/s, round time, launches per round (B1 = the
-     layer count) and peak memory. Every path starts with the launch
+     layer count) and peak memory. Served on the bf16 and int4 paths:
+     PagedEagleServer (B = 4, 16-row pages, chunks of 256, async, prefix
+     cache) over 8 requests (24, 311, 977, 150, 311 sharing 300 tokens
+     with the first 311, 24, 500, 977 tokens, 128 new each): lengths and
+     finish reasons, aggregate tok/s, rounds, B1 a round, pool bytes, peak
+     memory, preemptions, prefix hits and host syncs a scheduler step. Every path starts with the launch
      counts at 0, and its counts are checked against the run's own numbers;
   5. print {"kernels": [...]} and, as the last line,
      {"ok": true, "device": {...}}; the run's own wall time goes to stderr.
@@ -78,9 +92,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -89,6 +105,9 @@ from eagle_tpu_torch import full_width, probe_w4_ablate
 from eagle_tpu_torch.compare_kernels import device_time_ms
 from eagle_tpu_torch.config import DraftConfig, EngineConfig, ModelConfig
 from eagle_tpu_torch.engine.engine import EagleEngine, calibrate_total_tokens
+from eagle_tpu_torch.engine.paged import PagedEagleServer
+from eagle_tpu_torch.engine.server import EagleServer
+from eagle_tpu_torch.engine.session import EagleSession
 from eagle_tpu_torch.models import draft as draft_mod
 from eagle_tpu_torch.models import transformer
 from eagle_tpu_torch.ops import _build
@@ -97,12 +116,12 @@ from eagle_tpu_torch.ops import quant as tq
 from eagle_tpu_torch.ops import quant4 as tq4
 from eagle_tpu_torch.ops import score_topk as stk
 from eagle_tpu_torch.ops import w4_ablate as wab
-from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window, with_length
-from eagle_tpu_torch.ops.masks import prefill_mask
+from eagle_tpu_torch.ops.kv_cache import compact_rows_plain, window
 from eagle_tpu_torch.ops.tree import MC_SIM_7B_63, ancestor_mask, paths_to_parents
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores (data sheet)
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core peak (data sheet)
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 kernel vs plain: order of sums only
 # bf16: kernel and plain version both compute in f32 from the same bf16 inputs
@@ -462,6 +481,95 @@ def check_tree_attention_batched(dev, flush) -> dict:
                                   library_ratio=ms / library_ms)
     res["max_abs_err_batched_and_wide"] = worst
     return res
+
+
+def check_tree_attention_row_exact(dev, flush) -> dict:
+    """B1's f32 route is row-exact (fault C6): every row of a batched verify
+    (B = 3 random parent-first trees of 61 nodes at starts 0, 31 and 1023,
+    head_dim 128 and 64) is bit-identical to a one-token launch at start +
+    its depth on a cache that holds its ancestors in order; a 300-row causal
+    prefill is bit-identical to the same rows in chunks of 64 and of 37.
+    Timed at the main path's shape (T = 61, start 1024, head_dim 128, 32 q /
+    8 kv heads) beside its plain version, one f32 SDPA call over the same
+    keys and its bound at the float32 rates."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    rng = np.random.default_rng(9)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    starts = [0, 31, 1023]
+    for hd in (HD, HD64):
+        B, T = len(starts), T_TREE
+        tm = torch.stack([rand_tree_mask(T, rng, dev) for _ in range(B)]).contiguous()
+        q, kc, vc, kt, vt = (r(B, T, NQ, hd), r(B, NKV, S_CACHE, hd), r(B, NKV, S_CACHE, hd),
+                             r(B, T, NKV, hd), r(B, T, NKV, hd))
+        got = ak.tree_attention(q, kc, vc, kt, vt, tm, torch.tensor(starts, device=dev))
+        one = torch.ones((T, 1, 1), dtype=torch.bool, device=dev)
+        for b in range(B):
+            kc1, vc1 = kc[b].repeat(T, 1, 1, 1), vc[b].repeat(T, 1, 1, 1)
+            for t in range(T):
+                anc = torch.nonzero(tm[b, t])[:, 0]
+                rows = slice(starts[b], starts[b] + len(anc) - 1)
+                kc1[t, :, rows] = kt[b, anc[:-1]].transpose(0, 1)
+                vc1[t, :, rows] = vt[b, anc[:-1]].transpose(0, 1)
+            step = ak.tree_attention(q[b][:, None].contiguous(), kc1, vc1,
+                                     kt[b][:, None].contiguous(), vt[b][:, None].contiguous(),
+                                     one, starts[b] + tm[b].sum(-1) - 1)
+            if not torch.equal(step[:, 0], got[b]):
+                fail(f"[B1 f32 row-exact] head_dim {hd}: a verify row at start {starts[b]} "
+                     f"differs from its one-token step")
+        n = 300
+        q, kc, vc, kt, vt = r(1, n, NQ, hd), r(1, NKV, 512, hd), r(1, NKV, 512, hd), \
+            r(1, n, NKV, hd), r(1, n, NKV, hd)
+        causal = lambda m: torch.ones((1, m, m), dtype=torch.bool, device=dev).tril()
+        whole = ak.tree_attention(q, kc, vc, kt, vt, causal(n), torch.zeros(1, device=dev))
+        for chunk in (64, 37):
+            ck, cv = torch.zeros_like(kc), torch.zeros_like(vc)
+            for s0 in range(0, n, chunk):
+                m = min(chunk, n - s0)
+                part = ak.tree_attention(q[:, s0:s0 + m].contiguous(), ck, cv,
+                                         kt[:, s0:s0 + m].contiguous(),
+                                         vt[:, s0:s0 + m].contiguous(), causal(m),
+                                         torch.full((1,), s0, device=dev))
+                if not torch.equal(part, whole[:, s0:s0 + m]):
+                    fail(f"[B1 f32 row-exact] head_dim {hd}: prefill rows {s0}.. in chunks "
+                         f"of {chunk} differ from the whole prefill")
+                ck[0, :, s0:s0 + m] = kt[0, s0:s0 + m].transpose(0, 1)
+                cv[0, :, s0:s0 + m] = vt[0, s0:s0 + m].transpose(0, 1)
+        log(f"[B1 f32 row-exact] head_dim {hd}: B = {B} verify rows (T = {T}, starts {starts}) "
+            f"== their one-token steps at start + depth; a {n}-row prefill == its chunks of "
+            f"64 and of 37, bit for bit")
+
+    start, T = 1024, T_TREE
+    tm = rand_tree_mask(T, rng, dev)
+    args = (r(T, NQ, HD), r(NKV, S_CACHE, HD), r(NKV, S_CACHE, HD), r(T, NKV, HD),
+            r(T, NKV, HD), tm)
+    q, kc, vc, kt, vt, _ = args
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    got = ak.tree_attention(*args, st)
+    ref = ak.tree_attention_ref(*args, st)
+    torch.testing.assert_close(got, ref, **FP32_TOL)
+    ms = device_time_ms(lambda: ak.tree_attention(*args, st), flush=flush)
+    plain_ms = device_time_ms(lambda: ak.tree_attention_ref(*args, st), flush=flush)
+    kcat = torch.cat([kc[:, :start], kt.transpose(0, 1)], dim=1)[None]
+    vcat = torch.cat([vc[:, :start], vt.transpose(0, 1)], dim=1)[None]
+    lmask = torch.cat([torch.ones(T, start, dtype=torch.bool, device=dev), tm], 1)
+    qs = q.transpose(0, 1)[None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, kcat, vcat, attn_mask=lmask[None, None], enable_gqa=True)
+    library_ms = device_time_ms(sdpa, flush=flush)
+    nbytes = 2 * T * NQ * HD * 4 + 2 * NKV * start * HD * 4 + 2 * T * NKV * HD * 4 + T * T
+    flops = 4 * T * NQ * (start + T) * HD
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    bound_ms, bound_by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log(f"[B1 f32 row-exact] T={T} head_dim={HD} start={start}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, f32 sdpa {library_ms:.4f} ms, kernel/sdpa {ms / library_ms:.3f}, "
+        f"bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} flop at "
+        f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s), kernel/bound {ms / bound_ms:.1f}; "
+        f"max_abs_err vs plain {max_err(got, ref):.3e}")
+    return {"at_f32_row_exact": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     max_abs_err=max_err(got, ref),
+                                     library_ratio=ms / library_ms)}
 
 
 def check_compact_rows(dev, flush) -> dict:
@@ -1064,7 +1172,9 @@ def check_exactness(dev) -> None:
          dataclasses.replace(ecfg, **q8),
          ("tree_attention", "compact_rows", "score_topk_quant")))
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 130)]
+    # 5 and 40 tokens: the 130-token prompt, drawn third, is left out to make
+    # room for the serving checks (check_batched_exactness keeps 130 and 400)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 40, 130)][:2]
     for label, tparams, e, must_launch in cases:
         eng = EagleEngine(tparams, cfg, dparams, dcfg, e, device=dev)
         ak.reset_launch_counts()
@@ -1181,83 +1291,18 @@ def check_exactness(dev) -> None:
         f"generate == generate_fused == vanilla; launches {_nonzero(ak.LAUNCHES)}")
 
 
-# fault C6 (ROADMAP.md C): the rows of check_batched_exactness whose
-# one-sequence int4 speculative decode leaves its vanilla decode on the
-# card, as (prompt length, first differing new token)
-C6_ROWS = {(40, 34), (130, 24)}
-
-
-def _b1_step_attention(q, k_cache, v_cache, mask, ks=None, vs=None):
-    """transformer.attention for a vanilla step (T = 1, the step's own K/V
-    row already in the cache at `start`) through B1: the rows < start as
-    the prefix, the step's row as a one-node tree."""
-    B, T, nq, d = q.shape
-    if T != 1 or ks is not None:
-        raise ValueError("_b1_step_attention takes one float-cache step")
-    start = mask[:, 0].sum(-1) - 1
-    rows = start.view(B, 1, 1, 1).expand(B, k_cache.shape[1], 1, d)
-    kt = k_cache.gather(2, rows).transpose(1, 2).contiguous()
-    vt = v_cache.gather(2, rows).transpose(1, 2).contiguous()
-    one = torch.ones((B, 1, 1), dtype=torch.bool, device=q.device)
-    return ak.tree_attention(q.contiguous(), k_cache, v_cache, kt, vt, one, start)
-
-
-def c6_witness(eng, prompt, k: int, van_token: int, spec_token: int) -> None:
-    """Fault C6 at its first differing new token k: the step at position p
-    that predicts it (input: the token both decodes agree on), on the
-    vanilla decode's cache (the plain attention, as generate_vanilla runs
-    it, and B1's f32 kernel at T = 1, the kernel a verify attends with) and
-    on the speculative decode's cache (rows < p written by its verify
-    rounds, the same tokens). Logs each step's token and how far its logits
-    move, and where the two caches' rows < p differ."""
-    with torch.no_grad():
-        _, _, van, token, req = eng._vanilla_prefill(prompt, None, 0)
-        for _ in range(k - 1):
-            van, token = eng._vanilla_step(van, token, None, *req)
-        p = int(van.length[0])
-        _, _, st = eng._start(prompt, None)
-        while int(st.length) < p:
-            st, _ = eng._round(st)
-        spec = with_length(st.cache, van.length)
-        gap = ((spec.k - van.k).abs().amax((1, 2, 4))[:, :p].amax(-1)
-               / van.k.abs().amax((1, 2, 3, 4)))             # [L] relative, rows < p
-        picks = []
-        for label, cache, attn in (("vanilla cache", van, transformer.attention),
-                                   ("vanilla cache, B1 at T = 1", van, _b1_step_attention),
-                                   ("speculative decode's cache", spec, transformer.attention)):
-            plain, transformer.attention = transformer.attention, attn
-            try:
-                res = transformer.forward(eng.params, eng.cfg, token.reshape(1, 1), cache,
-                                          van.length.reshape(1, 1),
-                                          prefill_mask(1, cache.max_len, van.length))
-            finally:
-                transformer.attention = plain
-            picks.append((label, transformer.lm_head(eng.params, eng.cfg, res.hidden[0, 0])))
-    base = picks[0][1]
-    top = torch.topk(base, 2)
-    steps = "; ".join(f"{label}: {int(lg.argmax())} (logits within "
-                      f"{float((lg - base).abs().max()):.3e})" for label, lg in picks[1:])
-    log(f"[C6 witness] prompt {len(prompt)}, new token {k} (position {p}): vanilla decode "
-        f"{van_token}, speculative decode {spec_token}; the step on the vanilla cache picks "
-        f"{int(top.indices[0])} (runner-up {int(top.indices[1])}, "
-        f"{float(top.values[0] - top.values[1]):.3e} below); {steps}; the caches' K rows < p "
-        f"differ per layer by at most {[f'{float(x):.2e}' for x in gap]} of the layer's "
-        f"largest |K|")
-
-
 def check_batched_exactness(dev) -> None:
     """fp32, batched: every row of generate_batch_fused (B = 3 ragged prompts,
     one bucket of 256 prompt rows) equals, token for token, its own
     one-sequence generate_fused and its generate_vanilla, for the dense
     target, an int4 target + int4 draft + fused scoring, a static tree,
     kv_buckets across a bucket edge and an int8 KV cache; forced replay and
-    EOS per row on the dense target; generate_batch too. The one exception
-    is fault C6 of ROADMAP.md: on the int4 engine the rows named in C6_ROWS
-    may leave their vanilla decode at the named new token, and only as
-    their one-sequence generate_fused leaves it (batching adds nothing);
-    `c6_witness` then shows the mechanism at that token. A batch runs B1
-    once per layer and round, and never B2; a batched round of each engine
-    waits on no host sync."""
+    EOS per row on the dense target; generate_batch too. No row of any
+    engine is exempt: the int4 rows of the prompts where fault C6 showed (40
+    and 130 tokens, `default_rng(4)`) included, one sequence and batched. A
+    batch runs B1 once per layer for its prefill (the row-exact f32 route)
+    and once per layer and round, and never B2; a batched round of
+    each engine waits on no host sync."""
     cfg, dcfg = fp32_configs()
     ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=512,
                         compact_impl="pallas")
@@ -1289,37 +1334,30 @@ def check_batched_exactness(dev) -> None:
         ak.reset_launch_counts()
         outs, committed, rounds = eng.generate_batch_fused(ps, max_new_tokens=new, log=True)
         launches = dict(ak.LAUNCHES)
-        c6 = []
+        eng._kv_limit = limit_of       # the buckets of the batch alone
         for i, (o, v) in enumerate(zip(outs, van)):
-            if len(o) == len(v) and np.array_equal(o, v):
-                continue
-            row = (len(ps[i]), int(np.argmax(o != v)) - len(ps[i]))
             one = eng.generate_fused(ps[i], max_new_tokens=new)
-            if (eng is not int4 or row not in C6_ROWS or not np.array_equal(o, one)
-                    or len(o) != len(v)):
-                fail(f"fp32 batched {label}: row {i} (prompt {len(ps[i])}) leaves its "
-                     f"generate_vanilla at new token {row[1]}"
-                     + ("" if np.array_equal(o, one) else
-                        ", and its one-sequence generate_fused"))
-            c6.append(row)
-            c6_witness(eng, ps[i], row[1], int(v[sum(row)]), int(o[sum(row)]))
-        if c6:
-            log(f"[exact batched] {label}: fault C6 at (prompt, first differing new token) "
-                f"{c6}, as the one-sequence generate_fused leaves its vanilla decode")
+            for name, out in (("generate_batch_fused", o), ("one-sequence generate_fused", one)):
+                if len(out) != len(v) or not np.array_equal(out, v):
+                    bad = int(np.argmax(out[: len(v)] != v[: len(out)])) - len(ps[i])
+                    fail(f"fp32 batched {label}: {name}, row {i} (prompt {len(ps[i])}), "
+                         f"leaves its generate_vanilla at new token {bad}")
         idle = [k for k in must_launch if launches[k] == 0]
-        want_b1 = L * rounds if "tree_attention" in must_launch else 0
+        # B1 once per layer for the batch's prefill (the row-exact f32 route)
+        # and once per layer and round
+        want_b1 = L * (rounds + 1) if eng._row_exact else 0
         if idle or launches["compact_rows"] or launches["tree_attention"] != want_b1:
             fail(f"fp32 batched {label}: launches {_nonzero(launches)} for {rounds} rounds "
-                 f"(B1 must launch {L} times a round for the whole batch, B2 never)")
+                 f"(B1 must launch {L} times for the prefill and {L} times a round for the "
+                 f"whole batch, B2 never)")
         # one bucket for the batch, from its longest row (400 prompt tokens:
         # 512, then the full cache)
         if bucketed and used != {512, eng._tgt_len()}:
             fail(f"fp32 batched {label}: buckets used {sorted(used)}; no edge crossed")
         check_round_without_sync(f"fp32 batched {label}", eng, ps)
         log(f"[exact batched] {label}, prompts {[len(p) for p in ps]}: every row of "
-            f"generate_batch_fused == its vanilla"
-            + (" or, where not, its generate_fused" if c6 else "")
-            + f" ({rounds} rounds, committed {committed}); "
+            f"generate_batch_fused == its one-sequence generate_fused == its vanilla"
+            f" ({rounds} rounds, committed {committed}); "
             f"launches {_nonzero(launches)}"
             + (f", buckets {sorted(used)}" if bucketed else "")
             + "; a batched round waits on no host sync")
@@ -1348,6 +1386,95 @@ def check_batched_exactness(dev) -> None:
     log(f"[exact batched] dense: generate_batch rows == vanilla; forced replay walks each "
         f"row's reference (a flipped token in row 1); EOS {eos} per row (generate_batch and "
         f"generate_batch_fused) == vanilla with that EOS")
+
+
+def check_serving_exactness(dev) -> None:
+    """fp32 with the kernels on, on the dense engine and on the int4 engine
+    (int4 target + int4 draft + fused scoring): a 3-turn EagleSession equals
+    generate_vanilla of each turn's full context; EagleServer(max_batch=2,
+    async_schedule=1) over 5 staggered requests gives each request its
+    generate_vanilla; PagedEagleServer(page_size=16, prefill_chunk=64) with
+    a pool that forces a preemption (two long generations and a chunked
+    prompt in 18 pages), and one with a request that adopts a donated
+    200-token prefix beside a fresh one, give each request its
+    generate_vanilla. Every attention of these engines runs B1's row-exact
+    f32 route: prefills, chunks, session extensions, verifies and vanilla
+    steps."""
+    cfg, dcfg = fp32_configs()
+    ecfg = EngineConfig(total_tokens=60, depth=5, top_k=10, max_len=512,
+                        compact_impl="pallas")
+    params = transformer.init_params(cfg, seed=10, device=dev)
+    dparams = draft_mod.init_params(dcfg, seed=11, device=dev)
+    V = cfg.vocab_size
+    engines = (("dense", EagleEngine(params, cfg, dparams, dcfg, ecfg, device=dev)),
+               ("int4 target, int4 draft, fused scoring",
+                EagleEngine(tq4.quantize_target_params4(params), cfg, dparams, dcfg,
+                            dataclasses.replace(ecfg, draft_quant="int4", fuse_scoring=True),
+                            device=dev)))
+    for label, eng in engines:
+        rng = np.random.default_rng(5)
+        ak.reset_launch_counts()
+
+        def held(what, out, prompt, new):
+            van = eng.generate_vanilla(prompt, max_new_tokens=new)
+            if len(out) != len(van) or not np.array_equal(out, van):
+                bad = int(np.argmax(out[: len(van)] != van[: len(out)])) - len(prompt)
+                fail(f"fp32 serving {label}: {what} (prompt {len(prompt)}) leaves its "
+                     f"generate_vanilla at new token {bad}")
+
+        sess = EagleSession(eng)
+        ctx, reused = rng.integers(0, V, 30), []
+        for turn in range(3):
+            out, st = sess.send(ctx, max_new_tokens=24, log=True)
+            held(f"session turn {turn}", out, ctx, 24)
+            reused.append(st["reused_prefix"])
+            ctx = np.concatenate([out, rng.integers(0, V, 9)])
+        if reused[0] != 0 or not all(reused[1:]):
+            fail(f"fp32 serving {label}: session reused prefixes {reused}")
+
+        prompts = [rng.integers(0, V, n) for n in (5, 40, 130, 17, 64)]
+        budgets = (32, 48, 24, 40, 32)
+        srv = EagleServer(eng, max_batch=2, async_schedule=1)
+        rids = [srv.submit(prompts[i], budgets[i]) for i in (0, 1)]
+        srv.step()
+        srv.step()
+        rids.append(srv.submit(prompts[2], budgets[2]))
+        srv.step()
+        rids += [srv.submit(prompts[i], budgets[i]) for i in (3, 4)]
+        outs = srv.run()
+        for i, rid in enumerate(rids):
+            held(f"EagleServer request {i}", outs[rid], prompts[i], budgets[i])
+
+        tight = PagedEagleServer(eng, max_batch=2, page_size=16, prefill_chunk=64,
+                                 num_pages=19, async_schedule=1)
+        paged = [(prompts[0], 140), (prompts[1], 130), (prompts[2], 24)]
+        rids = [tight.submit(p, b) for p, b in paged]
+        outs = tight.run()
+        if tight.preemptions < 1:
+            fail(f"fp32 serving {label}: the 18-page pool forced no preemption")
+        for (p, b), rid in zip(paged, rids):
+            held("PagedEagleServer (tight pool) request", outs[rid], p, b)
+
+        donor = rng.integers(0, V, 200)
+        adopter = np.concatenate([donor, rng.integers(0, V, 20)])
+        px = PagedEagleServer(eng, max_batch=2, page_size=16, prefill_chunk=64,
+                              async_schedule=1)
+        rd = px.submit(donor, 16)
+        px.run()
+        ra, rf = px.submit(adopter, 40), px.submit(prompts[3], 40)
+        outs = px.run()
+        if px.store.hits != 1 or px.store.reused_tokens < 191:
+            fail(f"fp32 serving {label}: the adopter reused {px.store.reused_tokens} rows "
+                 f"({px.store.hits} hits)")
+        held("PagedEagleServer donor", px.finished[rd], donor, 16)
+        held("PagedEagleServer adopter", outs[ra], adopter, 40)
+        held("PagedEagleServer fresh request", outs[rf], prompts[3], 40)
+        log(f"[exact serving] {label}: 3-turn session (reused {reused}), EagleServer "
+            f"(5 staggered, async), PagedEagleServer (tight pool: {tight.preemptions} "
+            f"preemptions, {tight.cancelled_prefills} cancelled chunk jobs, "
+            f"{tight.chunked_prefills} chunked; prefix: {px.store.reused_tokens} rows "
+            f"adopted) == generate_vanilla for every request; launches "
+            f"{_nonzero(ak.LAUNCHES)}")
 
 
 def check_sampled_exactness(dev) -> None:
@@ -1730,6 +1857,101 @@ def batched_path(dev, label: str, eng: EagleEngine, card: str) -> dict:
     return launches
 
 
+SERVE_PROMPTS = (24, 311, 977, 150, 311, 24, 500, 977)
+
+
+def served_path(dev, label: str, eng: EagleEngine, card: str) -> dict:
+    """PagedEagleServer(max_batch=4, page_size=16, prefill_chunk=256,
+    async_schedule=1, prefix_cache=True) on a full-width engine over 8
+    requests (prompts of SERVE_PROMPTS tokens, the second 311-token prompt
+    sharing its first 300 tokens with the first; 128 new tokens each),
+    served to the end: the first four arrive at once, the other four when
+    the first 311-token request has finished, so that its pages are in the
+    prefix store when the second one arrives. bf16 rows are not held to their
+    vanilla decode (cuBLAS picks its GEMM per M; fp32 serving is held in
+    phase 3): each request must finish by length with 128 new tokens in the
+    vocabulary after its prompt, and B1 must launch once per layer and
+    served round. Logs aggregate tok/s, rounds, B1 launches a round, pool
+    bytes, peak memory, preemptions, prefix hits, host syncs per scheduler
+    step (the result drains, plus any other sync torch's sync debug mode
+    "warn" reports) and the finish reasons, beside `card`."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    prompts[4][:300] = prompts[1][:300]
+    new, L = 128, eng.cfg.num_layers
+    warm = PagedEagleServer(eng, max_batch=4, page_size=16, prefill_chunk=256)
+    for p in (prompts[0], prompts[3][:40]):
+        warm.submit(p, 8)
+    warm.run()
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = PagedEagleServer(eng, max_batch=4, page_size=16, prefill_chunk=256,
+                           async_schedule=1, prefix_cache=True)
+    ak.reset_launch_counts()
+    steps = 0
+
+    def serve(until):
+        nonlocal steps
+        while not until():
+            if steps == 4000:
+                fail(f"[{label} served] not done after {steps} scheduler steps")
+            srv.step()
+            steps += 1
+
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rids = [srv.submit(p, new) for p in prompts[:4]]
+            serve(lambda: rids[1] in srv.finished)
+            rids += [srv.submit(p, new) for p in prompts[4:]]
+            serve(srv._idle)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ak.LAUNCHES)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    other_syncs = len(syncs)
+    sync_sites = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs})
+    for rid, p in zip(rids, prompts):
+        out = srv.finished.get(rid)
+        if out is None or len(out) != len(p) + new or not np.array_equal(out[: len(p)], p) \
+                or out.min() < 0 or out.max() >= eng.cfg.vocab_size \
+                or srv.finish_reasons[rid] != "length":
+            fail(f"[{label} served] request of {len(p)} tokens: "
+                 f"{None if out is None else len(out)} tokens, "
+                 f"finish {srv.finish_reasons.get(rid)}")
+    if launches["tree_attention"] != L * srv.rounds or launches["compact_rows"]:
+        fail(f"[{label} served] launches {_nonzero(launches)} for {srv.rounds} served rounds "
+             f"(B1 {L} a round, B2 never)")
+    reasons = {}
+    for r in srv.finish_reasons.values():
+        reasons[r] = reasons.get(r, 0) + 1
+    stats = {
+        "card": card, "path": f"{label}, PagedEagleServer B = 4, 16-row pages, chunks of "
+        f"256, async depth 1, prefix cache", "prompt_lens": list(SERVE_PROMPTS),
+        "new_tokens_each": new, "aggregate_tokens_per_s": len(prompts) * new / wall,
+        "wall_s": wall, "scheduler_steps": steps, "rounds": srv.rounds,
+        "b1_launches_per_round": launches["tree_attention"] / srv.rounds,
+        "pool_bytes": srv.pool_bytes,
+        "peak_GiB_allocated": torch.cuda.max_memory_allocated() / 2**30,
+        "preemptions": srv.preemptions, "prefix_hits": srv.store.hits,
+        "prefix_reused_tokens": srv.store.reused_tokens,
+        "chunked_prefills": srv.chunked_prefills,
+        "host_syncs_per_step": (srv.drains + other_syncs) / steps,
+        "drains_per_step": srv.drains / steps, "other_syncs": other_syncs,
+        "other_sync_sites": sync_sites,
+        "finish_reasons": reasons,
+        "launches_per_round": {k: v / srv.rounds for k, v in _nonzero(launches).items()},
+        "weights": "random (seeded), lm_head x8"}
+    log(f"[{label} served] {json.dumps(stats)}")
+    return launches
+
+
 def static_path(dev, base: EagleEngine) -> dict:
     """This slice's path at full width: the static-tree + kv_buckets engine
     over the bf16 engine's weights answers one request through
@@ -1894,16 +2116,19 @@ def main() -> None:
                timed("2: B5", check_score_topk, dev, flush),
                *timed("2: B6", check_w4_ablate, dev, flush)]
     kernels[0].update(timed("2: B1 batched and wide", check_tree_attention_batched, dev, flush))
+    kernels[0].update(timed("2: B1 f32 row-exact", check_tree_attention_row_exact, dev, flush))
     del flush
     torch.cuda.empty_cache()
     timed("3: exact", check_exactness, dev)
     timed("3: exact batched", check_batched_exactness, dev)
+    timed("3: exact serving", check_serving_exactness, dev)
     timed("3: exact sampled", check_sampled_exactness, dev)
     timed("3: sampled rules", check_sampled_mc, dev)
     bf16_launches, _, eng = timed("4: bf16", main_path, dev, "bf16", full_width.engine, (24,))
     sampled = {"bf16": timed("4: sampled bf16", sampled_path, dev, "sampled bf16", eng,
                              "true_q", card, repeat=True)}
     batched = {"bf16": timed("4: batched bf16", batched_path, dev, "bf16", eng, card)}
+    served = {"bf16": timed("4: served bf16", served_path, dev, "bf16", eng, card)}
     static_launches = timed("4: static", static_path, dev, eng)
     sampled["static"] = timed("4: sampled static", sampled_path, dev, "sampled static",
                               full_width.engine_static(dev, base=eng), "true_q", card)
@@ -1916,6 +2141,7 @@ def main() -> None:
     sampled["int4"] = timed("4: sampled int4", sampled_path, dev, "sampled int4", eng,
                             "true_q_dynamic", card)
     batched["int4"] = timed("4: batched int4", batched_path, dev, "int4", eng, card)
+    served["int4"] = timed("4: served int4", served_path, dev, "int4", eng, card)
     del eng
     torch.cuda.empty_cache()
     hd64_launches, _, eng = timed("4: hd64", main_path, dev, "hd64", full_width.engine_hd64,
@@ -1938,6 +2164,8 @@ def main() -> None:
                 k[f"launches_sampled_{path}_path"] = counts[k["name"]]
             for path, counts in batched.items():
                 k[f"launches_batched_{path}_path"] = counts[k["name"]]
+            for path, counts in served.items():
+                k[f"launches_served_{path}_path"] = counts[k["name"]]
         if k["launches"] == 0:
             fail(f"{k['name']} was never launched on its path")
     for name in ("tree_attention", "compact_rows"):
@@ -1948,9 +2176,10 @@ def main() -> None:
     idle = [k for k in ENGINE_KERNELS if sampled["int4"][k] == 0]
     if idle:
         fail(f"the sampled int4 path never launched {idle}")
-    idle = [k for k in ENGINE_KERNELS if k != "compact_rows" and batched["int4"][k] == 0]
-    if idle or batched["bf16"]["tree_attention"] == 0:
-        fail(f"the batched paths never launched {idle or ['tree_attention']}")
+    for kind, paths in (("batched", batched), ("served", served)):
+        idle = [k for k in ENGINE_KERNELS if k != "compact_rows" and paths["int4"][k] == 0]
+        if idle or paths["bf16"]["tree_attention"] == 0:
+            fail(f"the {kind} paths never launched {idle or ['tree_attention']}")
     log(f"[smoke] seconds a phase (host clock): {json.dumps(phase_s)}")
     log(f"[smoke] whole run, kernels' build included: {time.time() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -62,14 +62,18 @@
 //    the columns in slices of 64. Shared memory: (64 + 4 * 32) rows of 264
 //    bf16 = 99 KiB.
 //
-// f32 (the exactness checks, and every head_dim > 256), `tree_attn_kernel`:
-// the first version's FP32 FMA body (TF32 tensor cores would not hold an f32
-// tolerance of 1e-5): one block per (kv head, 16 query rows) walks the prefix
-// to `start`, then the tree's keys, with products from shared memory
-// (dynamic: 83.5 KiB at HD = 256). Past 256 columns (either stored type, run
-// at HD = 256) Q.K is summed over the head in passes of 256 columns and a
-// block keeps one 256-column slice of the output (grid.z = the slice), so
-// registers and shared memory do not grow with d.
+// f32 (every attention of an f32 engine on the card, and every head_dim >
+// 256), `tree_attn_kernel`: FP32 FMA products (TF32 tensor cores would not
+// hold an f32 tolerance of 1e-5), one block per (kv head, 16 query rows),
+// products from shared memory (dynamic: 83.5 KiB at HD = 256). It is
+// row-exact: a row's output depends only on its query and its key sequence
+// (the cache rows below start, then the fresh keys its mask row selects, at
+// virtual positions start, start + 1, ...), summed in 32-position groups at
+// multiples of 32, so a tree verify, a one-token step and a prefill in any
+// chunks give a row the same bits (see the kernel). Past 256 columns (either
+// stored type, run at HD = 256) Q.K is summed over the head in passes of 256
+// columns and a block keeps one 256-column slice of the output (grid.z = the
+// slice), so registers and shared memory do not grow with d.
 
 #include "ptx.cuh"
 
@@ -123,6 +127,68 @@ __host__ __device__ constexpr int f32_smem() {   // Qs, Ks, Vs, Ps, m / l / a
   return ((R + 2 * BK) * (D + 4) + R * (BK + 1) + 3 * R) * 4;
 }
 
+// One group of BK virtual positions for query row r, one warp, lane = the
+// position mod BK. x: the lane's scaled score, or NEG_INF where the row has
+// no key. Updates the row's max, sum and rescale factor (lane 0) and parks
+// its weights in Ps. Every rounding is explicit, so no call site can
+// contract a product into a sum: a group's arithmetic depends only on its
+// scores and on the row's (m, l) before it.
+__device__ __forceinline__ void group_softmax(float x, int r, int lane, float* m_s, float* l_s,
+                                              float* a_s, float* Ps) {
+  const float m_prev = m_s[r];
+  const float m_new = fmaxf(m_prev, warp_max(x));
+  const float p = expf(__fsub_rn(x, m_new));
+  Ps[r * (BK + 1) + lane] = p;
+  const float psum = warp_sum(p);
+  __syncwarp();
+  if (lane == 0) {
+    const float a = expf(__fsub_rn(m_prev, m_new));
+    a_s[r] = a;
+    l_s[r] = __fadd_rn(__fmul_rn(a, l_s[r]), psum);
+    m_s[r] = m_new;
+  }
+}
+
+// columns c .. c + 3 of a source row as f32 (zeros past d; a null row is
+// all zeros): one 16-byte load for aligned f32 rows, else element by element
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* row, int c, int d, bool vec4) {
+  if (row == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (sizeof(T) == 4) {
+    if (vec4 && c + 4 <= d) return *reinterpret_cast<const float4*>(row + c);
+  }
+  float e[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = c + i < d ? to_f(row[c + i]) : 0.f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+__device__ __forceinline__ float dot4(float4 q, float4 k, float s) {
+  s = fmaf(q.x, k.x, s);
+  s = fmaf(q.y, k.y, s);
+  s = fmaf(q.z, k.z, s);
+  return fmaf(q.w, k.w, s);
+}
+
+// The f32 body, row-exact: a query row's output depends only on q and on
+// its key sequence, the cache rows [0, start) in order and then the fresh
+// keys its mask row selects in index order, at virtual positions start,
+// start + 1, ... (its rank among them). Keys are taken in groups of BK
+// virtual positions at multiples of BK, lane = position mod BK, with an
+// online softmax per group; a group past a row's last key changes nothing
+// (its weights are exactly 0 and its rescale exactly 1). So a verify row
+// at depth j reproduces, bit for bit, the one-token step at position
+// start + j on a cache holding its ancestors, and a prefill row the same
+// row of a prefill in other chunks, whatever T, Tk, start, the batch or
+// the row's place in its block are.
+//
+// Groups wholly below the block's shared boundary are read once for all R
+// rows from shared tiles: the full groups of cache rows, or, when every
+// row's mask row is a prefix of the fresh keys (a causal prefill, a
+// one-token step), every group, fresh keys included, since rank is then
+// the key index. Past it (a tree verify) each row walks its own groups:
+// its warp finds the fresh keys of each group by ballots over its mask row,
+// and each lane reads its key's K and V rows from global memory.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) tree_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
@@ -152,7 +218,10 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
   float* m_s = Ps + R * (BK + 1);
   float* l_s = m_s + R;
   float* a_s = l_s + R;
+  __shared__ int cnt_s[R], pre_s[R];  // fresh keys a row sees; its mask row is a prefix
+  __shared__ int key_s[R * BK];       // per-row walk: the key at each position
   const bool vec = (d * (int)sizeof(T)) % 16 == 0;   // rows 16-byte aligned
+  const bool vec4 = d % 4 == 0;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -164,19 +233,43 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
   int start = start_ptr[b];
   start = start < 0 ? 0 : (start > S_rows ? S_rows : start);
 
+  // each warp counts the fresh keys of its 4 rows (block rows 4w..4w+3)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 4 + i, gr = r0 + r;
+    int cnt = 0, last = -1;
+    if (gr < rows) {
+      const uint8_t* mrow = mask + (size_t)(gr / g) * Tk;
+      for (int kb = 0; kb < Tk; kb += BK) {
+        const unsigned bits = __ballot_sync(0xffffffffu, kb + lane < Tk && mrow[kb + lane] != 0);
+        cnt += __popc(bits);
+        if (bits) last = kb + 31 - __clz(bits);
+      }
+    }
+    if (lane == 0) { cnt_s[r] = cnt; pre_s[r] = last + 1 == cnt; }
+  }
+
   // Q tile, columns cp .. cp + D: block row r is global row r0 + r = (t, j)
   // -> q head h*g + j
+  auto q_row = [&](int r) -> const T* {
+    const int gr = r0 + r;
+    return gr < rows ? q + ((size_t)(gr / g) * nq + h * g + gr % g) * d : nullptr;
+  };
   auto load_q = [&](int cp) {
     for (int e = tid; e < R * CH; e += NT) {
       const int r = e / CH, c = (e % CH) * VEC;
-      const int gr = r0 + r;
-      const T* src = nullptr;
-      if (gr < rows) src = q + ((size_t)(gr / g) * nq + h * g + gr % g) * d;
-      load_chunk<T>(Qs + r * DP + c, src, cp + c, d, vec);
+      load_chunk<T>(Qs + r * DP + c, q_row(r), cp + c, d, vec);
     }
   };
   if (q_kept) load_q(0);
   if (tid < R) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
+  __syncthreads();
+  int max_cnt = 0;
+  bool all_prefix = true;
+#pragma unroll
+  for (int r = 0; r < R; ++r) { max_cnt = max(max_cnt, cnt_s[r]); all_prefix &= pre_s[r] != 0; }
+  const int vend = start + max_cnt;                       // past every row's last key
+  const int shared_end = all_prefix ? vend : start / BK * BK;
 
   // PV-phase ownership: row pr, float4 column chunks pc + 32*i
   const int pr = tid >> 3;
@@ -184,89 +277,134 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
   float4 acc[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // two phases: 0 = committed prefix (cols < start), 1 = fresh tree K/V
-  for (int phase = 0; phase < 2; ++phase) {
-    const int nkeys = phase == 0 ? start : Tk;
-    for (int kb = 0; kb < nkeys; kb += BK) {
-      // scores: warp w owns rows 4w..4w+3, lane owns key kb + lane; summed
-      // over the head in passes of D columns, the first of which also loads
-      // the block's V columns
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int cp = 0; cp < d; cp += D) {
-        __syncthreads();  // previous tile / pass fully consumed (and Q / m / l ready)
-        if (!q_kept) load_q(cp);
-        for (int e = tid; e < BK * CH; e += NT) {
-          const int r = e / CH, c = (e % CH) * VEC;
-          const int key = kb + r;
-          const T* ks = nullptr;
-          const T* vs = nullptr;
-          if (key < nkeys) {
-            const size_t off = phase == 0 ? ((size_t)h * S + key) * d
-                                          : ((size_t)key * nkv + h) * d;
-            ks = (phase == 0 ? kc : kt) + off;
-            vs = (phase == 0 ? vc : vt) + off;
-          }
-          load_chunk<T>(Ks + r * DP + c, ks, cp + c, d, vec);
-          if (cp == 0) load_chunk<T>(Vs + r * DP + c, vs, c0 + c, d, vec);
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int c = 0; c < D; c += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(Ks + lane * DP + c);
+  // acc = acc * a + sum over the group's positions, in order, of P * V; vrow
+  // gives position kk's V row at column cc
+  auto accumulate = [&](auto vrow) {
+    const float a = a_s[pr];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 qv = *reinterpret_cast<const float4*>(Qs + (warp * 4 + i) * DP + c);
-            s[i] = fmaf(qv.x, kv.x, s[i]);
-            s[i] = fmaf(qv.y, kv.y, s[i]);
-            s[i] = fmaf(qv.z, kv.z, s[i]);
-            s[i] = fmaf(qv.w, kv.w, s[i]);
-          }
-        }
-      }
-      const int key = kb + lane;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp * 4 + i;
-        const int gr = r0 + r;
-        bool ok;
-        if (phase == 0) ok = key < start;
-        else ok = gr < rows && key < Tk && mask[(size_t)(gr / g) * Tk + key] != 0;
-        const float x = ok ? s[i] * scale : NEG_INF;
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, warp_max(x));
-        const float p = expf(x - m_new);
-        Ps[r * (BK + 1) + lane] = p;
-        const float psum = warp_sum(p);
-        __syncwarp();
-        if (lane == 0) {
-          const float a = expf(m_prev - m_new);
-          a_s[r] = a;
-          l_s[r] = a * l_s[r] + psum;
-          m_s[r] = m_new;
-        }
-      }
-      __syncthreads();
-
-      // acc = acc * alpha + P @ V
-      const float a = a_s[pr];
+    for (int i = 0; i < NC; ++i) {
+      acc[i].x = __fmul_rn(acc[i].x, a); acc[i].y = __fmul_rn(acc[i].y, a);
+      acc[i].z = __fmul_rn(acc[i].z, a); acc[i].w = __fmul_rn(acc[i].w, a);
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float p = Ps[pr * (BK + 1) + kk];
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
-        acc[i].x *= a; acc[i].y *= a; acc[i].z *= a; acc[i].w *= a;
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        const float p = Ps[pr * (BK + 1) + kk];
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * DP + pc + 32 * i);
-          acc[i].x = fmaf(p, vv.x, acc[i].x);
-          acc[i].y = fmaf(p, vv.y, acc[i].y);
-          acc[i].z = fmaf(p, vv.z, acc[i].z);
-          acc[i].w = fmaf(p, vv.w, acc[i].w);
-        }
+        const float4 vv = vrow(kk, pc + 32 * i);
+        acc[i].x = fmaf(p, vv.x, acc[i].x);
+        acc[i].y = fmaf(p, vv.y, acc[i].y);
+        acc[i].z = fmaf(p, vv.z, acc[i].z);
+        acc[i].w = fmaf(p, vv.w, acc[i].w);
       }
     }
+  };
+
+  // shared groups: position v is cache row v below start, else fresh key
+  // v - start (reached only when every row's mask is a prefix)
+  for (int v0 = 0; v0 < shared_end; v0 += BK) {
+    // scores: warp w owns rows 4w..4w+3, lane owns position v0 + lane; summed
+    // over the head in passes of D columns, the first of which also loads
+    // the block's V columns
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int cp = 0; cp < d; cp += D) {
+      __syncthreads();  // previous tile / pass fully consumed
+      if (!q_kept) load_q(cp);
+      for (int e = tid; e < BK * CH; e += NT) {
+        const int r = e / CH, c = (e % CH) * VEC;
+        const int v = v0 + r;
+        const T* ks = nullptr;
+        const T* vs = nullptr;
+        if (v < start) {
+          ks = kc + ((size_t)h * S + v) * d;
+          vs = vc + ((size_t)h * S + v) * d;
+        } else if (v < vend) {
+          ks = kt + ((size_t)(v - start) * nkv + h) * d;
+          vs = vt + ((size_t)(v - start) * nkv + h) * d;
+        }
+        load_chunk<T>(Ks + r * DP + c, ks, cp + c, d, vec);
+        if (cp == 0) load_chunk<T>(Vs + r * DP + c, vs, c0 + c, d, vec);
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < D; c += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(Ks + lane * DP + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[i] = dot4(*reinterpret_cast<const float4*>(Qs + (warp * 4 + i) * DP + c), kv, s[i]);
+      }
+    }
+    const int v = v0 + lane;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 4 + i;
+      const bool ok = v < start + cnt_s[r];
+      group_softmax(ok ? __fmul_rn(s[i], scale) : NEG_INF, r, lane, m_s, l_s, a_s, Ps);
+    }
+    __syncthreads();
+    accumulate([&](int kk, int cc) {
+      return *reinterpret_cast<const float4*>(Vs + kk * DP + cc);
+    });
+  }
+
+  // per-row groups: position v of row r is cache row v below start, else
+  // the fresh key of rank v - start in its mask row (key_s; -1: none). Each
+  // warp keeps, for each of its rows, where its ballots over the mask row
+  // stand: the 32-key chunk and the rank of its first key.
+  int cur_c[4] = {0, 0, 0, 0}, cur_base[4] = {0, 0, 0, 0};
+  for (int v0 = shared_end; v0 < vend; v0 += BK) {
+    const int v = v0 + lane;
+    const int jlo = v0 - start;                  // rank at lane 0 (may be < 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 4 + i, gr = r0 + r;
+      const int cnt = cnt_s[r];
+      key_s[r * BK + lane] = -1;
+      __syncwarp();
+      if (gr < rows) {
+        const uint8_t* mrow = mask + (size_t)(gr / g) * Tk;
+        const int need = min(jlo + BK, cnt);   // ranks below this are due by now
+        while (cur_base[i] < need) {
+          const int k = cur_c[i] * BK + lane;
+          const bool sel = k < Tk && mrow[k] != 0;
+          const unsigned bits = __ballot_sync(0xffffffffu, sel);
+          const int rank = cur_base[i] + __popc(bits & ((1u << lane) - 1u));
+          if (sel && rank >= jlo && rank < jlo + BK) key_s[r * BK + rank - jlo] = k;
+          const int n = __popc(bits);
+          if (cur_base[i] + n > jlo + BK) break;   // the chunk reaches the next group
+          cur_base[i] += n;
+          ++cur_c[i];
+        }
+      }
+      __syncwarp();
+      const int key = key_s[r * BK + lane];
+      const T* krow = v < start ? kc + ((size_t)h * S + v) * d
+                    : (gr < rows && v - start < cnt && key >= 0)
+                        ? kt + ((size_t)key * nkv + h) * d : nullptr;
+      float sc = 0.f;
+      const T* qg = q_row(r);
+      for (int cp = 0; cp < d; cp += D) {
+#pragma unroll 8
+        for (int c = 0; c < D; c += 4) {
+          const float4 qv = q_kept ? *reinterpret_cast<const float4*>(Qs + r * DP + c)
+                                   : load4<T>(qg, cp + c, d, vec4);
+          sc = dot4(qv, load4<T>(krow, cp + c, d, vec4), sc);
+        }
+      }
+      // the V row each position reads, for the accumulation below
+      key_s[r * BK + lane] = krow == nullptr ? -1 : v < start ? -2 - v : key;
+      group_softmax(krow != nullptr ? __fmul_rn(sc, scale) : NEG_INF, r, lane, m_s, l_s,
+                    a_s, Ps);
+    }
+    __syncthreads();
+    accumulate([&](int kk, int cc) {
+      const int code = key_s[pr * BK + kk];
+      const T* vrow = code == -1 ? nullptr
+                    : code <= -2 ? vc + ((size_t)h * S + (-2 - code)) * d
+                                 : vt + ((size_t)code * nkv + h) * d;
+      return load4<T>(vrow, c0 + cc, d, vec4);
+    });
+    __syncthreads();  // key_s and Ps fully read before the next group
   }
   __syncthreads();
 
@@ -277,7 +415,8 @@ __global__ void __launch_bounds__(NT) tree_attn_kernel(
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = c0 + pc + 32 * i;
-      const float v[4] = {acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv};
+      const float v[4] = {__fmul_rn(acc[i].x, inv), __fmul_rn(acc[i].y, inv),
+                          __fmul_rn(acc[i].z, inv), __fmul_rn(acc[i].w, inv)};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (c + e < d) store_f(o + c + e, v[e]);

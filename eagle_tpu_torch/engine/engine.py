@@ -52,6 +52,14 @@ with `seed + i`, so row i of a batched sampled request draws what the
 one-sequence request with seed `seed + i` draws, whatever the batch size.
 Each row's temperature rides in EngineState as its own device value.
 
+Incremental prefill (`_extend`) appends context to a committed state: the
+sessions, the servers' chunked prefill and prefix adoption run on it. On
+the card an f32 engine with the tree kernel and a float cache runs every
+target attention (verify, prefill, `_extend`, the vanilla step) through the
+kernel's row-exact f32 route (`_fresh_mask`), so a row's attention bits do
+not depend on the other rows of its call: a quantized target then stays
+bit-exact against its own vanilla decode however its context was prefilled.
+
 Options not ported yet raise NotImplementedError: sp_mesh, a mesh in
 from_pretrained, MoE and sliding-window targets.
 """
@@ -131,12 +139,27 @@ def _target_feats(res: transformer.ForwardResult, version: int) -> torch.Tensor:
     return res.taps if version == 3 else res.hidden
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without a host sync: through pinned memory
+    and a non-blocking copy on the card (the caching host allocator keeps
+    the pinned block until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _to_device(tree, device):
+    """A parameter tree on `device`; the tree itself when it is there already
+    (an engine's siblings share its parameter dicts)."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+        out = {k: _to_device(v, device) for k, v in tree.items()}
+    elif isinstance(tree, list):
+        out = [_to_device(v, device) for v in tree]
+    else:
+        return tree.to(device)
+    items = zip(out.values(), tree.values()) if isinstance(tree, dict) else zip(out, tree)
+    return tree if all(a is b for a, b in items) else out
 
 
 class EagleEngine:
@@ -194,6 +217,12 @@ class EagleEngine:
                                else self.params["lm_head"])
         else:
             self._lm_head_w = None
+        # the row-exact route (fault C6): on the card an f32 engine with the
+        # tree kernel and a float cache runs every target attention through
+        # it, so a row's attention never depends on the other rows of its call
+        self._row_exact = (self.device.type == "cuda" and cfg.dtype == torch.float32
+                           and cfg.attn_impl == "pallas_tree" and ecfg.kv_quant == "none")
+        self._causal_masks: dict = {}
 
     @classmethod
     def from_pretrained(cls, base_model_path: str, ea_model_path: str,
@@ -290,9 +319,12 @@ class EagleEngine:
         margin = 16 if e.compact_impl == "pallas" else 0
         return -(-(e.max_len + e.tree_size + margin) // 128) * 128
 
-    def init_target_cache(self, batch: int = 1) -> KVCache:
+    def init_target_cache(self, batch: int = 1, rows: Optional[int] = None) -> KVCache:
+        """Target KV of the full size, or of `rows` rows (the paged server's
+        prompt scratch, which holds only the prefill before its page scatter)."""
         c = self.cfg
-        return init_cache(c.num_layers, batch, c.num_kv_heads, self._tgt_len(),
+        return init_cache(c.num_layers, batch, c.num_kv_heads,
+                          self._tgt_len() if rows is None else rows,
                           c.head_dim, dtype=c.dtype, device=self.device,
                           kv_quant=self.ecfg.kv_quant)
 
@@ -318,6 +350,23 @@ class EagleEngine:
     @property
     def sampled(self) -> bool:
         return self.ecfg.temperature > 0
+
+    def _fresh_mask(self, T: int, S: int, start: torch.Tensor):
+        """The mask of T fresh rows appended at `start` ([B]) to a cache of S
+        rows: the dense causal mask, or, on the row-exact route, a causal
+        TreeMaskSpec over the T fresh keys, which the tree kernel takes as it
+        takes a verify's tree. Each row then sees the cache rows below its
+        start and the fresh keys up to its own, as a verify row sees its
+        ancestors, so prefills in any chunks, one-token steps and verifies
+        give a row the same attention bits."""
+        if not self._row_exact:
+            return prefill_mask(T, S, start)
+        B = start.shape[0]
+        m = self._causal_masks.get((B, T))
+        if m is None:
+            m = torch.ones((T, T), dtype=torch.bool, device=self.device).tril()
+            m = self._causal_masks[(B, T)] = m.expand(B, T, T).contiguous()
+        return TreeMaskSpec(tree_mask=m, start=start)
 
     def _draws(self, gens, shape, low: float = 0.0) -> torch.Tensor:
         """[B, *shape] uniforms in [low, 1): row b's from its own generator,
@@ -372,8 +421,7 @@ class EagleEngine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed) + i)
             gens.append(gen)
-        temps = torch.from_numpy(np.broadcast_to(t, (batch,)).copy()).to(self.device)
-        return temps, tuple(gens)
+        return upload(np.broadcast_to(t, (batch,)).copy(), self.device), tuple(gens)
 
     def _prefill_rows(self, tokens: torch.Tensor, prompt_lens: torch.Tensor,
                       cache: KVCache, dcache: KVCache,
@@ -391,7 +439,7 @@ class EagleEngine:
         S = cache.max_len
         pos = torch.arange(Tp, device=dev)[None].expand(B, Tp)
         res = transformer.forward(self.params, self.cfg, tokens, cache, pos,
-                                  prefill_mask(Tp, S, cache.length))
+                                  self._fresh_mask(Tp, S, cache.length))
         last = _rows(res.hidden, (prompt_lens - 1)[:, None])[:, 0]
         root = self._pick_tokens(transformer.lm_head(self.params, self.cfg, last),
                                  temperature, gens)
@@ -408,6 +456,45 @@ class EagleEngine:
         return EngineState(tokens=tokens_buf, length=prompt_lens, cache=cache,
                            dcache=dr.dcache, tree=dr.tree,
                            done=torch.zeros(B, dtype=torch.bool, device=dev),
+                           temperature=temperature, gen=gens)
+
+    def _extend(self, tokens: torch.Tensor, n_new: int, start: int, state: EngineState,
+                temperature: Optional[torch.Tensor] = None, gens=None) -> EngineState:
+        """Incremental prefill: append context to a committed batch-of-one
+        state (multi-turn KV reuse, chunked prefill).
+
+        tokens: [1, Te] padded window on the device whose row 0 is the
+        already-committed token at position `start` (the resume point - 1)
+        and rows 1 .. n_new - 1 the appended context. Re-running the
+        boundary row reproduces its target features (its draft pair's input
+        token was the previous turn's uncommitted bonus, not the new
+        context's first token) and rewrites its target K/V row with the same
+        values. `start` may be below state.length (a rewind: rows past it
+        are overwritten or masked by length). A sampled engine draws the
+        root token, then the draft's noise, from `gens` at `temperature`
+        ([1]). Returns a state of length start + n_new whose next round
+        continues as a prefill of the whole context would."""
+        dev = self.device
+        Te = tokens.shape[1]
+        st = torch.full((1,), start, dtype=torch.long, device=dev)
+        cache = with_length(state.cache, st)
+        pos = (start + torch.arange(Te, device=dev))[None]
+        res = transformer.forward(self.params, self.cfg, tokens, cache, pos,
+                                  self._fresh_mask(Te, cache.max_len, st))
+        root = self._pick_tokens(transformer.lm_head(self.params, self.cfg,
+                                                     res.hidden[:, n_new - 1]),
+                                 temperature, gens)
+        new_len = st + n_new
+        ext_tokens = torch.cat([tokens[:, 1:], torch.zeros((1, 1), dtype=torch.long,
+                                                           device=dev)], 1)
+        ext_tokens[:, n_new - 1] = root
+        dr = self._draft_round(ext_tokens, _target_feats(res, self.dcfg.version),
+                               new_len - st, with_length(state.dcache, st), temperature,
+                               gens)
+        state.tokens[:, start: start + Te] = tokens
+        return EngineState(tokens=state.tokens, length=new_len,
+                           cache=with_length(res.cache, new_len), dcache=dr.dcache,
+                           tree=dr.tree, done=torch.zeros(1, dtype=torch.bool, device=dev),
                            temperature=temperature, gen=gens)
 
     def _round(self, state: EngineState, ref: Optional[torch.Tensor] = None,
@@ -803,7 +890,7 @@ class EagleEngine:
         S = cache.max_len
         pos = cache.length.reshape(1, 1)
         res = transformer.forward(self.params, self.cfg, token.reshape(1, 1),
-                                  cache, pos, prefill_mask(1, S, cache.length))
+                                  cache, pos, self._fresh_mask(1, S, cache.length))
         logits = transformer.lm_head(self.params, self.cfg, res.hidden[:, 0])
         return res.cache, self._pick_tokens(logits, temperature, gens)[0]
 
@@ -822,7 +909,7 @@ class EagleEngine:
         toks = torch.from_numpy(padded).to(dev)
         res = transformer.forward(self.params, self.cfg, toks, cache,
                                   torch.arange(Tp, device=dev)[None],
-                                  prefill_mask(Tp, cache.max_len, cache.length))
+                                  self._fresh_mask(Tp, cache.max_len, cache.length))
         logits = transformer.lm_head(self.params, self.cfg, res.hidden[:, Lp - 1])
         token = self._pick_tokens(logits, *request)[0]
         cache = with_length(res.cache, torch.full((1,), Lp, dtype=torch.long, device=dev))

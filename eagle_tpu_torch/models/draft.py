@@ -63,6 +63,8 @@ def fuse_projections(dparams: dict) -> dict:
     """Concatenate each layer's q/k/v (and gate/up) weights along the output
     axis: wqkv [in, q_dim + 2*kv_dim], wgu [H, 2F]. Idempotent; layers that
     are already fused or quantized are left as they are."""
+    if all("wqkv" in lp or isinstance(lp.get("wq"), dict) for lp in dparams["layers"]):
+        return dparams            # nothing to fuse: the same dict
     out = dict(dparams)
     layers = []
     for lp in dparams["layers"]:

@@ -1,7 +1,7 @@
 """Where the time of the main path goes, on one NVIDIA GPU.
 
     python -m eagle_tpu_torch.profile_main_path [--path bf16|int4|static|kv8|hd64 ...]
-        [--temperature T] [--batch B] [--out DIR]
+        [--temperature T] [--batch B] [--served dense|paged] [--out DIR]
 
 Builds a full-width engine (eagle_tpu_torch/full_width.py: the bf16 path;
 `int4`, the int4 serving path: w4a8 target, int4 draft, fused draft scoring;
@@ -30,6 +30,12 @@ its own prefix length), and the result also gives the host syncs a round
 makes (counted under torch's sync debug mode "warn" over two rounds) and
 tokens per second of the batch at τ = 1 (B tokens a round); the vanilla
 step stays the one-sequence step.
+With --served dense|paged a "round" is one scheduler step of a server
+holding B requests of those prompts (engine/server.EagleServer, or
+engine/paged.PagedEagleServer with 16-row pages): the batched round, the
+paged one's page gather before it and row scatter after it, the copy of its
+outputs to the host and the drain that waits for them, as a served step
+runs them.
 Writes the profiler tables to DIR/profile_main_path[_PATH].txt (default
 profile_out/) and prints one JSON line of results per path. Needs CUDA.
 """
@@ -92,10 +98,26 @@ def _syncs_per_round(step, state, rounds: int = 2) -> float:
                for w in caught) / rounds
 
 
-def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dict:
+def _served_start(eng, prompt, batch: int, served: str):
+    """A server of `batch` slots holding `batch` requests of _start's prompts,
+    admitted and prefilled; its `step` is the served round."""
+    from .engine.paged import PagedEagleServer
+    from .engine.server import EagleServer
+
+    srv = (PagedEagleServer(eng, max_batch=batch, page_size=16) if served == "paged"
+           else EagleServer(eng, max_batch=batch))
+    for i in range(batch):
+        srv.submit(prompt[: len(prompt) - 37 * i], 4 * ROUNDS + 64)
+    srv._admit()
+    torch.cuda.synchronize()
+    return srv
+
+
+def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1,
+                 served: str = None) -> dict:
     """Time and profile ROUNDS rounds of `eng` (batched rounds of `batch`
-    sequences when batch > 1); writes the profiler tables and returns the
-    results."""
+    sequences when batch > 1; served steps of a server when `served`);
+    writes the profiler tables and returns the results."""
     # a bucketed engine runs each round against the bucket of its length; the
     # CONTEXT and the few rounds here stay inside one bucket
     kv_limit = eng._kv_limit(CONTEXT + (ROUNDS + 3) * eng.path_len)
@@ -103,9 +125,14 @@ def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dic
     prompt = rng.integers(0, eng.cfg.vocab_size, CONTEXT)
     # the round as the host loops run it: B2 for one sequence, not for a batch
     step = lambda state: eng._round_rows(state, None, kv_limit, batched=batch > 1)
+    start = lambda: _start(eng, prompt, batch)
+    if served:
+        # the state is the server; a step is its served round
+        step = lambda srv: (srv, srv.step())
+        start = lambda: _served_start(eng, prompt, batch, served)
 
     # host-clock step times (each ends in a sync)
-    state = _start(eng, prompt, batch)
+    state = start()
     with torch.no_grad():
         for _ in range(3):
             state, _ = step(state)
@@ -117,7 +144,7 @@ def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dic
             torch.cuda.synchronize()
             round_ms.append((time.perf_counter() - t0) * 1e3)
         syncs = _syncs_per_round(step, state)
-        single = state if batch == 1 else _start(eng, prompt, 1)
+        single = state if batch == 1 and not served else _start(eng, prompt, 1)
         del state
         cache = single.cache
         token = single.tree.tokens[0, 0]
@@ -132,7 +159,7 @@ def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dic
 
         del single, cache
         # profiled window of speculative rounds
-        state = _start(eng, prompt, batch)
+        state = start()
         for _ in range(3):
             state, _ = step(state)
         torch.cuda.synchronize()
@@ -166,7 +193,7 @@ def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dic
     top = sorted(kernels, key=_dev_self, reverse=True)[:14]
     round_med = float(np.median(round_ms))
     result = {
-        "card": card, "path": path, "context": CONTEXT, "batch": batch,
+        "card": card, "path": path, "context": CONTEXT, "batch": batch, "served": served,
         "temperature": eng.ecfg.temperature, "acceptance": eng.ecfg.acceptance,
         "rounds": n, "tree_nodes": eng.ecfg.tree_size, "kv_limit": kv_limit,
         "round_ms_median": round_med,
@@ -186,7 +213,7 @@ def profile_path(path: str, eng, card: str, out_dir: str, batch: int = 1) -> dic
     os.makedirs(out_dir, exist_ok=True)
     suffix = ("" if path == "bf16" else "_" + path) + (
         f"_t{eng.ecfg.temperature:g}" if eng.sampled else "") + (
-        f"_b{batch}" if batch > 1 else "")
+        f"_b{batch}" if batch > 1 else "") + (f"_{served}" if served else "")
     with open(os.path.join(out_dir, f"profile_main_path{suffix}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n\n")
@@ -200,6 +227,7 @@ def main() -> None:
     ap.add_argument("--path", choices=PATHS, nargs="+", default=["bf16"])
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--served", choices=("dense", "paged"), nargs="+", default=[None])
     args = ap.parse_args()
     paths = args.path
     if not torch.cuda.is_available():
@@ -224,8 +252,9 @@ def main() -> None:
         if args.temperature > 0:
             eng = eng._sibling(temperature=args.temperature, top_p=SAMPLED_TOP_P,
                                acceptance=SAMPLED_ACCEPTANCE[path])
-        print(json.dumps(profile_path(path, eng, smi.stdout.strip(), args.out, args.batch)),
-              flush=True)
+        for served in args.served:
+            print(json.dumps(profile_path(path, eng, smi.stdout.strip(), args.out, args.batch,
+                                          served)), flush=True)
 
 
 if __name__ == "__main__":

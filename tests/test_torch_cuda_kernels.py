@@ -223,6 +223,62 @@ def test_tree_attention_kernel_wide_head(dev, dtype, d):
             _b1_check(ak.tree_attention(*args, st), args, st)
 
 
+def _row_exact_inputs(dev, T, d, seed, S=2112, nq=8, nkv=2, B=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    rng = np.random.default_rng(seed)
+    masks = torch.stack([ancestor_mask(torch.tensor(
+        [0] + [int(rng.integers(0, i)) for i in range(1, T)], device=dev), T)
+        for _ in range(B)]).contiguous()
+    return r(B, T, nq, d), r(B, nkv, S, d), r(B, nkv, S, d), r(B, T, nkv, d), r(B, T, nkv, d), masks
+
+
+@pytest.mark.parametrize("starts", [(0, 31, 32), (1000, 1023, 2047)])
+@pytest.mark.parametrize("T", [1, 26, 61])
+@pytest.mark.parametrize("d", [64, 128, 256, 320])
+def test_tree_attention_f32_row_exact(dev, starts, T, d):
+    """The f32 route is row-exact (fault C6): each row of a batched verify
+    (B = 3, random parent-first trees, three starts) is bit-identical to a
+    one-token launch at start + depth on a cache that holds its ancestors
+    in order; and a 300-row causal prefill is bit-identical to the same
+    rows prefilled in chunks of 64 and of 37."""
+    q, kc, vc, kt, vt, tm = _row_exact_inputs(dev, T, d, seed=T * 1000 + d + starts[0])
+    st = torch.tensor(starts, device=dev)
+    got = ak.tree_attention(q, kc, vc, kt, vt, tm, st)
+    one = torch.ones((T, 1, 1), dtype=torch.bool, device=dev)
+    for b in range(3):
+        # row t alone: its ancestors (mask row, index order) at start..start+depth-1
+        kc1, vc1 = kc[b].repeat(T, 1, 1, 1), vc[b].repeat(T, 1, 1, 1)
+        depth = tm[b].sum(-1) - 1
+        for t in range(T):
+            anc = torch.nonzero(tm[b, t])[:, 0]
+            rows = slice(starts[b], starts[b] + len(anc) - 1)
+            kc1[t, :, rows] = kt[b, anc[:-1]].transpose(0, 1)
+            vc1[t, :, rows] = vt[b, anc[:-1]].transpose(0, 1)
+        step = ak.tree_attention(q[b][:, None].contiguous(), kc1, vc1,
+                                 kt[b][:, None].contiguous(), vt[b][:, None].contiguous(),
+                                 one, starts[b] + depth)
+        assert torch.equal(step[:, 0], got[b]), (b, starts[b])
+    if T != 61:
+        return
+    # a causal prefill of 300 rows at start 0, whole and in chunks
+    n = 300
+    q, kc, vc, kt, vt, _ = _row_exact_inputs(dev, n, d, seed=d, B=1)
+    causal = lambda m: torch.ones((1, m, m), dtype=torch.bool, device=dev).tril()
+    whole = ak.tree_attention(q, kc, vc, kt, vt, causal(n), torch.zeros(1, device=dev))
+    for chunk in (64, 37):
+        cache_k, cache_v = torch.zeros_like(kc), torch.zeros_like(vc)
+        for s0 in range(0, n, chunk):
+            m = min(chunk, n - s0)
+            part = ak.tree_attention(q[:, s0:s0 + m].contiguous(), cache_k, cache_v,
+                                     kt[:, s0:s0 + m].contiguous(),
+                                     vt[:, s0:s0 + m].contiguous(), causal(m),
+                                     torch.full((1,), s0, device=dev))
+            assert torch.equal(part, whole[:, s0:s0 + m]), (chunk, s0)
+            cache_k[0, :, s0:s0 + m] = kt[0, s0:s0 + m].transpose(0, 1)
+            cache_v[0, :, s0:s0 + m] = vt[0, s0:s0 + m].transpose(0, 1)
+
+
 def test_tree_attention_merge_counters_left_zero(dev):
     """The bf16 kernel's merge counters are zero after every launch, and a
     second stream gets a buffer of its own."""

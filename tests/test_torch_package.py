@@ -24,6 +24,7 @@ from eagle_tpu_torch.models import hf_loader
 from eagle_tpu_torch.models import draft as draft_mod
 from eagle_tpu_torch.models import transformer
 from eagle_tpu_torch.ops.kv_cache import init_cache
+from eagle_tpu_torch.ops import paged_kv
 
 from test_engine_greedy import make_engine
 from torch_port_util import np_tree, port_engine
@@ -109,6 +110,7 @@ _ENTRY_POINTS = {
     "convert.draft_params": lambda j: convert.draft_params(np_tree(j.dparams)),
     "init_cache": lambda j: init_cache(1, 1, 1, 8, 4),
     "init_cache[int8]": lambda j: init_cache(1, 1, 1, 8, 4, kv_quant="int8"),
+    "paged_kv.init_pool": lambda j: paged_kv.init_pool(1, 1, 2, 4, 4),
     "calibrate_total_tokens": lambda j: calibrate_total_tokens(
         {}, convert.model_config(j.cfg), candidates=(4,), weights=(1.0,), reps=1),
     "hf_loader.convert_target": lambda j: hf_loader.convert_target(

@@ -37,3 +37,36 @@ def port_engine(jeng, attn_impl=None, **ecfg_changes):
     dparams = convert.draft_params(np_tree(jeng.dparams), device="cpu")
     return TorchEngine(params, cfg, dparams, convert.draft_config(jeng.dcfg),
                        ecfg, device="cpu")
+
+
+_PAIRS: dict = {}
+
+
+def engine_pair(version=1, attn_impl="pallas_tree", **make_kw):
+    """(JAX engine, port engine on the CPU) of `test_engine_greedy.make_engine`
+    (version, **make_kw), built once per process and shared by every test
+    that asks for the same arguments: a serving test file builds its engines
+    once."""
+    key = (version, attn_impl, tuple(sorted(make_kw.items())))
+    if key not in _PAIRS:
+        from test_engine_greedy import make_engine
+
+        jeng = make_engine(version, **make_kw)
+        _PAIRS[key] = (jeng, port_engine(jeng, attn_impl=attn_impl))
+    return _PAIRS[key]
+
+
+_REFS: dict = {}
+
+
+def greedy_ref(eng, prompt, max_new_tokens: int, longest: int = 40):
+    """The port engine's greedy decode of `prompt` (its `generate_vanilla`,
+    which its speculative paths equal) to `max_new_tokens`, cut from one
+    decode of at least `longest` new tokens per (engine, prompt): a greedy
+    output with a smaller budget is a prefix of it."""
+    prompt = np.asarray(prompt, np.int64).ravel()
+    key = (id(eng), prompt.tobytes())
+    n = max(longest, max_new_tokens)
+    if key not in _REFS or _REFS[key][0] < n:
+        _REFS[key] = (n, eng.generate_vanilla(prompt, max_new_tokens=n, fused=True))
+    return _REFS[key][1][: len(prompt) + max_new_tokens]
